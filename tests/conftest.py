@@ -16,3 +16,8 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
