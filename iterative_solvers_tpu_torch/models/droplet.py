@@ -220,10 +220,12 @@ def seeded_solution(geom: MeshGeometry, cfg: DropletConfig,
 
 
 def initial_mesh_potential(cfg: DropletConfig, dtype=torch.float64,
-                           device="cpu"):
-    """Q = (ksi^2 + eta^2)/2 — the identity mesh."""
+                           device="cuda"):
+    """Q = (ksi^2 + eta^2)/2 — the identity mesh, on ``device`` (default
+    CUDA; raises if CUDA is absent and ``device="cpu"`` was not passed)."""
+    dev = resolve_device(device)
     grid = cfg.grid
-    return 0.5 * (grid.xx_op(dtype, device) ** 2 + grid.yy_op(dtype, device) ** 2)
+    return 0.5 * (grid.xx_op(dtype, dev) ** 2 + grid.yy_op(dtype, dev) ** 2)
 
 
 # -- the step ----------------------------------------------------------------

@@ -65,15 +65,12 @@ def jvp_apply_ref(v, stack, grid: Grid2D):
 
 @lru_cache(maxsize=None)
 def _kernel():
-    from ._build import load_library
+    from ._build import c_function
 
-    lib = load_library("droplet_jvp")
-    fn = lib.droplet_jvp_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return c_function("droplet_jvp_f32",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
 
 
 def jvp_matvec(v, stack, grid: Grid2D):

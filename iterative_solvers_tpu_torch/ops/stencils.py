@@ -31,6 +31,12 @@ _EDGE_ROWS = {
               [10.0, -15.0, -4.0, 14.0, -6.0, 1.0]],
     "d2_hi": [[1.0, -6.0, 14.0, -4.0, -15.0, 10.0],
               [0.0, -1.5, 32.0 / 3.0, -36.0, 96.0, -415.0 / 6.0]],
+    # 2nd-order upwind differences, /(2h): the last two forward rows and
+    # the first two backward rows
+    "d1f_hi": [[0.0, -2.0, 2.0],
+               [1.0, -4.0, 3.0]],
+    "d1b_lo": [[-3.0, 4.0, -1.0],
+               [-2.0, 2.0, 0.0]],
 }
 
 
@@ -82,3 +88,52 @@ def d2_y(u, dy: float):
 def dxy(u, dx: float, dy: float):
     """Mixed derivative d^2 u / (dksi deta): d1 along x, then along y."""
     return d1_y(d1_x(u, dx), dy)
+
+
+def d1_x_forward(u, dx: float):
+    """2nd-order forward difference along x: [-3,4,-1]/2h at j..j+2."""
+    s = 1.0 / (2.0 * dx)
+    interior = -3.0 * u[..., :-2] + 4.0 * u[..., 1:-1] - u[..., 2:]
+    return torch.cat([interior, _edge_rows(u, "d1f_hi")], dim=-1) * s
+
+
+def d1_x_backward(u, dx: float):
+    """2nd-order backward difference along x: [1,-4,3]/2h at j-2..j."""
+    s = 1.0 / (2.0 * dx)
+    interior = u[..., :-2] - 4.0 * u[..., 1:-1] + 3.0 * u[..., 2:]
+    return torch.cat([_edge_rows(u, "d1b_lo"), interior], dim=-1) * s
+
+
+def d1_y_forward(u, dy: float):
+    return d1_x_forward(u.transpose(-1, -2), dy).transpose(-1, -2)
+
+
+def d1_y_backward(u, dy: float):
+    return d1_x_backward(u.transpose(-1, -2), dy).transpose(-1, -2)
+
+
+# -- periodic operators ------------------------------------------------------
+
+def lap_periodic(u, h: float):
+    """5-point Laplacian with both axes periodic (plain version of the
+    ``lap_periodic`` kernel, ``ops/periodic_stencil.py``)."""
+    inv_h2 = 1.0 / (h * h)
+    return (torch.roll(u, 1, dims=-1) + torch.roll(u, -1, dims=-1)
+            + torch.roll(u, 1, dims=-2) + torch.roll(u, -1, dims=-2)
+            - 4.0 * u) * inv_h2
+
+
+def lap_dirichlet_5pt(u, h: float):
+    """5-point Laplacian with homogeneous Dirichlet values outside the grid
+    (``u`` holds the interior unknowns only)."""
+    inv_h2 = 1.0 / (h * h)
+    up = torch.nn.functional.pad(u, (1, 1, 1, 1))
+    return (up[..., :-2, 1:-1] + up[..., 2:, 1:-1] + up[..., 1:-1, :-2]
+            + up[..., 1:-1, 2:] - 4.0 * u) * inv_h2
+
+
+def sh_linear_operator(u, h: float, r: float):
+    """Swift–Hohenberg linear operator ``L = -Lap^2 - 2 Lap + (r-1) I``,
+    periodic (plain version of the ``sh_operator`` kernel)."""
+    lap_u = lap_periodic(u, h)
+    return -lap_periodic(lap_u, h) - 2.0 * lap_u + (r - 1.0) * u

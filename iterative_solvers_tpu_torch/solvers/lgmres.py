@@ -1,4 +1,4 @@
-"""LGMRES cycle with outer-vector recycling
+"""LGMRES with outer-vector recycling
 (port of ``iterative_solvers_tpu/solvers/lgmres.py``).
 
 Each cycle builds an augmented subspace of ``inner_m`` Arnoldi vectors
@@ -6,8 +6,9 @@ plus up to ``outer_k`` recycled solution directions from earlier cycles,
 solves the flexible-GMRES least-squares problem over it (the ``A z_j``
 orthonormalised into ``V``, the Hessenberg reduced by Givens rotations)
 and appends the new correction to the recycle buffer — scipy's ``lgmres``
-semantics, as the Newton solver uses them (one cycle per Newton
-iteration, recycle buffer carried across iterations).
+semantics.  The Newton solver uses one cycle per Newton iteration with the
+buffer carried across iterations and no cached ``A z``; :func:`lgmres` is
+the standalone solver, which caches ``A z`` (``store_av``) by default.
 
 The loop runs on the host; fields stay on the device.  Per Arnoldi step
 there is one host sync, for the convergence decision.
@@ -20,45 +21,58 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from .gmres import _apply_givens, _cgs2, _norm
+from .gmres import _arnoldi_column, _givens_step, _norm, _np_dtype
 
 
 class LgmresRecycle(NamedTuple):
     """Fixed-size recycle buffer of normalised outer directions.
 
     ``z[i]`` are earlier updates ``dx/||dx||``, oldest first among the
-    first ``count`` slots.  (The Jacobian changes between Newton
-    iterations, so no ``A z`` is cached: scipy's ``store_outer_Av=False``.)
+    first ``count`` slots.  ``az[i]`` caches ``A z[i]`` when the buffer
+    was made with ``store_av`` (``None`` otherwise: the Newton solver's
+    Jacobian changes between iterations, scipy's ``store_outer_Av=False``).
     """
 
-    z: torch.Tensor      # (outer_k, *shape)
-    count: int           # number of valid entries
+    z: torch.Tensor                # (outer_k, *shape)
+    count: int                     # number of valid entries
+    az: torch.Tensor | None = None  # (outer_k, *shape) or None
 
 
-def init_recycle(shape, outer_k: int, dtype, device="cpu") -> LgmresRecycle:
+class LgmresResult(NamedTuple):
+    x: torch.Tensor
+    iters: int             # total inner (Arnoldi) iterations
+    resnorm: float         # final residual norm ||b - A x||, recomputed
+    converged: bool
+
+
+def init_recycle(shape, outer_k: int, dtype, device="cpu",
+                 store_av: bool = False) -> LgmresRecycle:
     z = torch.zeros((outer_k,) + tuple(shape), dtype=dtype, device=device)
-    return LgmresRecycle(z=z, count=0)
+    return LgmresRecycle(z=z, count=0,
+                         az=torch.zeros_like(z) if store_av else None)
 
 
-def _np_dtype(dtype: torch.dtype):
-    return np.dtype(str(dtype).removeprefix("torch."))
-
-
-def _push_recycle(rec: LgmresRecycle, dx) -> LgmresRecycle:
-    """Append dx/||dx|| to the buffer, evicting the oldest entry when
-    full; a zero ``dx`` leaves the buffer as it is."""
+def _push_recycle(rec: LgmresRecycle, dx, adx=None) -> LgmresRecycle:
+    """Append dx/||dx|| (and A dx/||dx|| when the buffer caches A z) to the
+    buffer, evicting the oldest entry when full; a zero ``dx`` leaves the
+    buffer as it is."""
     nx = _np_dtype(dx.dtype).type(_norm(dx).item())
     if not nx > 0:
         return rec
     scale = float(nx.dtype.type(1.0) / nx)
     k = rec.z.shape[0]
-    if rec.count >= k:
-        z = torch.roll(rec.z, -1, dims=0)
-        z[-1] = dx * scale
-    else:
-        z = rec.z.clone()
-        z[rec.count] = dx * scale
-    return LgmresRecycle(z=z, count=min(rec.count + 1, k))
+
+    def pushed(buf, new):
+        if rec.count >= k:
+            buf = torch.roll(buf, -1, dims=0)
+            buf[-1] = new * scale
+        else:
+            buf = buf.clone()
+            buf[rec.count] = new * scale
+        return buf
+
+    return LgmresRecycle(z=pushed(rec.z, dx), count=min(rec.count + 1, k),
+                         az=None if rec.az is None else pushed(rec.az, adx))
 
 
 def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
@@ -89,27 +103,16 @@ def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
 
     j, res = 0, rnorm
     while j < steps and res > tol_abs:
-        z = rec.z[j - inner_m] if j >= inner_m else precond(V[j])
-        w = matvec(z)
+        if j >= inner_m:
+            z = rec.z[j - inner_m]
+            w = matvec(z) if rec.az is None else rec.az[j - inner_m]
+        else:
+            z = precond(V[j])
+            w = matvec(z)
         Z[j] = z
-        h_dev, w = _cgs2(V[:j + 1], w)
-        # the step's one host sync: Hessenberg column and its subdiagonal
-        hb = torch.cat([h_dev, _norm(w)[None]]).cpu().numpy()
-        h = np.zeros(mtot + 1, dtype=ndt)
-        h[:j + 1] = hb[:j + 1]
-        beta = hb[j + 1]
-        V[j + 1] = w / float(beta if beta > 0 else 1.0)
-
-        h = _apply_givens(h, cs, sn, j)
-        hj = h[j]
-        rho = np.sqrt(hj * hj + beta * beta)
-        c, s = (hj / rho, beta / rho) if rho > 0 else (ndt.type(1), ndt.type(0))
-        cs[j], sn[j] = c, s
-        h[j] = rho
+        h, beta = _arnoldi_column(V, w, j, ndt)
+        res = _givens_step(h, beta, cs, sn, g, j)
         R[:, j] = h[:mtot]
-        res = abs(-s * g[j])
-        g[j + 1] = -s * g[j]
-        g[j] = c * g[j]
         j += 1
 
     if j == 0:
@@ -120,5 +123,40 @@ def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
         y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
         y = torch.as_tensor(y.astype(ndt), device=r.device)
         dx = torch.tensordot(y, Z[:j], dims=1)
-    rec = _push_recycle(rec, dx)
+    rec = _push_recycle(rec, dx, None if rec.az is None else matvec(dx))
     return x + dx, res, j, rec
+
+
+def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
+           atol: float = 0.0, inner_m: int = 30, outer_k: int = 3,
+           maxiter: int = 1000, M: Callable | None = None,
+           recycle: LgmresRecycle | None = None,
+           store_av: bool = True) -> tuple[LgmresResult, LgmresRecycle]:
+    """Solve ``A x = b`` by LGMRES.  Returns ``(result, recycle buffer)``.
+
+    ``maxiter`` counts outer cycles (scipy's convention).  Pass the
+    returned buffer back in to speed up a sequence of related solves; a
+    buffer passed in keeps its own ``store_av`` setting.
+    """
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    precond = M if M is not None else (lambda v: v)
+    inner_m = int(min(inner_m, b.numel()))
+    if recycle is None:
+        recycle = init_recycle(b.shape, outer_k, b.dtype, b.device, store_av)
+    ndt = _np_dtype(b.dtype)
+    tol_abs = ndt.type(max(tol * _norm(b).item(), atol))
+
+    x, rec, iters, cycles = x0, recycle, 0, 0
+    r = b - matvec(x)
+    res = ndt.type(_norm(r).item())
+    while res > tol_abs and cycles < maxiter:
+        x, _, j, rec = _lgmres_cycle(matvec, precond, x, r, res, tol_abs,
+                                     inner_m, rec)
+        iters += j
+        cycles += 1
+        # gate the outer loop on the true residual (the Givens estimate drifts)
+        r = b - matvec(x)
+        res = ndt.type(_norm(r).item())
+    return (LgmresResult(x=x, iters=iters, resnorm=float(res),
+                         converged=bool(res <= tol_abs)), rec)

@@ -4,8 +4,10 @@ The semantics of ``scipy.optimize.newton_krylov``:
 
 - **matvec**: finite-difference directional derivative
   ``J v ≈ (F(x + sc v) - F(x)) / sc`` with ``sc = omega / ||v||`` and
-  ``omega = rdiff * max(1, max|x|) / max(1, max|F|)`` (scipy's rule), or a
-  caller's analytic ``matvec_factory``;
+  ``omega = rdiff * max(1, max|x|) / max(1, max|F|)`` (scipy's rule), the
+  exact JVP of ``torch.func.jvp`` (``jvp_mode="exact"``, for residuals
+  made of torch operations: the CUDA kernels have no derivative rule and
+  raise under it), or a caller's analytic ``matvec_factory``;
 - **inner solver**: one LGMRES cycle per Newton iteration (more with
   ``inner_maxiter``), recycled outer vectors carried across iterations;
 - **forcing**: the Eisenstat–Walker schedule of scipy's ``_nonlin.py``
@@ -25,8 +27,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .gmres import _norm
-from .lgmres import _lgmres_cycle, _np_dtype, init_recycle
+from .gmres import _norm, _np_dtype
+from .lgmres import _lgmres_cycle, init_recycle
 
 
 def _maxnorm(v):
@@ -55,6 +57,7 @@ class NewtonKrylov:
     outer_k: int = 10                  # recycled vectors
     inner_maxiter: int = 1             # lgmres cycles per Newton iteration
     rdiff: float | None = None         # None -> eps**0.5 of the state dtype
+    jvp_mode: str = "fd"               # "fd" (scipy-parity) | "exact" (torch.func.jvp)
     line_search: bool = True
     max_backtracks: int = 8
     inner_dtype: str | None = None
@@ -69,6 +72,8 @@ class NewtonKrylov:
 
     def solve(self, residual: Callable, x0: torch.Tensor, *args) -> NewtonResult:
         """Solve ``residual(x, *args) = 0`` starting from ``x0``."""
+        if self.jvp_mode not in ("fd", "exact"):
+            raise ValueError(f"jvp_mode must be 'fd' or 'exact', got {self.jvp_mode!r}")
         dtype = x0.dtype
         inner_dt = getattr(torch, self.inner_dtype) if self.inner_dtype else None
         if inner_dt == dtype:
@@ -95,6 +100,11 @@ class NewtonKrylov:
                 return torch.where(nv > 0, (func(x + sc * v) - f0) / sc,
                                    torch.zeros_like(v))
             return mv
+
+        def exact_matvec_at(x, f0):
+            return lambda v: torch.func.jvp(func, (x,), (v,))[1]
+
+        matvec_at = exact_matvec_at if self.jvp_mode == "exact" else fd_matvec_at
 
         def armijo(x, dx, f0_sqnorm):
             """Backtracking line search on phi(s) = ||F(x + s dx)||^2."""
@@ -123,11 +133,11 @@ class NewtonKrylov:
                 mv = self.matvec_factory(x, fx)
                 rhs = -fx.to(kdt)
             elif inner_dt is not None:
-                mv_full = fd_matvec_at(x, fx)
+                mv_full = matvec_at(x, fx)
                 mv = lambda v, f=mv_full: f(v.to(dtype)).to(inner_dt)  # noqa: E731
                 rhs = -fx.to(kdt)
             else:
-                mv = fd_matvec_at(x, fx)
+                mv = matvec_at(x, fx)
                 rhs = -fx
             ps = (self.psolve_factory(x, fx) if self.psolve_factory
                   is not None else (lambda v: v))
@@ -176,3 +186,9 @@ class NewtonKrylov:
 
         return NewtonResult(x=x, f_norm=f_norm, iters=it, func_evals=nfev,
                             converged=bool(done))
+
+
+def newton_krylov(residual: Callable, x0: torch.Tensor, *args,
+                  **options) -> NewtonResult:
+    """Functional one-shot API: ``newton_krylov(F, x0, f_tol=..., ...)``."""
+    return NewtonKrylov(**options).solve(residual, x0, *args)

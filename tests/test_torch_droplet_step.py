@@ -151,3 +151,15 @@ def test_entry_point_raises_without_cuda(golden, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tdp.make_step(golden[2], dt=1e-5, dtmesh=3e-9, pma_loops=1)
+
+
+def test_initial_mesh_potential_defaults_to_the_card(golden, monkeypatch):
+    """``initial_mesh_potential`` is an entry point: without a card its
+    default device raises, and with ``device="cpu"`` it matches JAX's."""
+    _, _, cfg, jfix = golden
+    got = tdp.initial_mesh_potential(cfg, device="cpu")
+    want = jdp.initial_mesh_potential(jfx.config_for(jfix))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-14)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdp.initial_mesh_potential(cfg)
