@@ -4,14 +4,20 @@ The JAX package beside it is the reference; this package keeps its module
 layout and function names so each counterpart is easy to find:
 
 - ``core``     — grid descriptor
-- ``ops``      — finite-difference stencils, curvilinear operators, DCTs as
-                 basis matmuls, the droplet JVP matvec (hand-written CUDA
-                 kernel in ``ops/csrc``) and its build
+- ``ops``      — finite-difference stencils, curvilinear operators, DCT/DST
+                 as basis matmuls, the sparse containers (DIA, CSR, COO,
+                 BSR, GridDIA) with their assembly helpers, and the
+                 hand-written CUDA kernels of ``ops/csrc`` with their
+                 wrappers and build: the droplet JVP matvec, the periodic
+                 stencils, the diagonal-format SpMV / SpMM
 - ``meshmove`` — monitor smoothing and the parabolic Monge–Ampère mesh loop
-- ``solvers``  — LGMRES with outer-vector recycling and Jacobian-free
-                 Newton–Krylov, as host-side loops over device tensors
-- ``models``   — the moving-mesh thin-film droplet Crank–Nicolson step
+- ``solvers``  — GMRES, LGMRES with outer-vector recycling, CG and
+                 Jacobian-free Newton–Krylov as host-side loops over device
+                 tensors; DST direct solvers, preconditioners, tridiagonal LU
+- ``models``   — the moving-mesh thin-film droplet step, Swift–Hohenberg,
+                 the Poisson duct flow, the 1-D heat and the wave steppers
 - ``io``       — the golden fixture state and conversion of JAX-side state
+- ``utils``    — byte and operation counts of the hot kernels
 
 It imports ``torch`` (and numpy/scipy) only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``; with no GPU present and no

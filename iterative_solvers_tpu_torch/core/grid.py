@@ -11,6 +11,8 @@ from functools import cached_property, lru_cache
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Grid2D:
@@ -53,15 +55,16 @@ class Grid2D:
         """y coordinate at every node, shape (ny, nx), f64 numpy."""
         return np.broadcast_to(self.y[:, None], self.shape).copy()
 
-    def xx_op(self, dtype=torch.float64, device="cpu") -> torch.Tensor:
+    def xx_op(self, dtype=torch.float64, device="cuda") -> torch.Tensor:
         """``(ny, nx)`` x-coordinate field on ``device``: a broadcast view
-        of the f64 linspace row cast to ``dtype``."""
-        row = _axis(self, "x", dtype, torch.device(device))
+        of the f64 linspace row cast to ``dtype``.  Raises without a GPU
+        unless the caller passes ``device="cpu"``."""
+        row = _axis(self, "x", dtype, resolve_device(device))
         return row[None, :].expand(self.shape)
 
-    def yy_op(self, dtype=torch.float64, device="cpu") -> torch.Tensor:
-        """``(ny, nx)`` y-coordinate field on ``device``."""
-        col = _axis(self, "y", dtype, torch.device(device))
+    def yy_op(self, dtype=torch.float64, device="cuda") -> torch.Tensor:
+        """``(ny, nx)`` y-coordinate field on ``device`` (see :meth:`xx_op`)."""
+        col = _axis(self, "y", dtype, resolve_device(device))
         return col[:, None].expand(self.shape)
 
 

@@ -1,4 +1,4 @@
-"""Orthonormal 2-D DCT-II / DCT-III as basis matmuls
+"""Orthonormal DCT-II / DCT-III and DST-I as basis matmuls
 (port of ``iterative_solvers_tpu/ops/dct.py``).
 
 An N-point DCT is a dense ``(N, N)`` cosine matrix, so the transform of an
@@ -43,3 +43,42 @@ def idct2(u):
     cy = _dct2_basis(u.shape[0], u.dtype, u.device)
     cx = _dct2_basis(u.shape[1], u.dtype, u.device)
     return (cy.T @ u) @ cx
+
+
+def _apply_along(c, u, axis: int):
+    """``c`` contracted with ``u`` along ``axis`` (``tensordot`` with the
+    transformed axis moved back into place)."""
+    return torch.movedim(torch.tensordot(c, torch.movedim(u, axis, 0), dims=1),
+                         0, axis)
+
+
+def dct1d(u, axis: int = -1):
+    """Orthonormal DCT-II along one axis."""
+    return _apply_along(_dct2_basis(u.shape[axis], u.dtype, u.device), u, axis)
+
+
+def idct1d(u, axis: int = -1):
+    """Inverse (orthonormal DCT-III) along one axis."""
+    return _apply_along(_dct2_basis(u.shape[axis], u.dtype, u.device).T, u, axis)
+
+
+@lru_cache(maxsize=32)
+def _dst1_basis_np(n: int) -> np.ndarray:
+    """Orthonormal DST-I matrix (its own inverse):
+    ``S[k, m] = sqrt(2/(n+1)) sin(pi k m / (n+1))``, k, m = 1..n."""
+    k = np.arange(1, n + 1)[:, None]
+    m = np.arange(1, n + 1)[None, :]
+    return np.sin(np.pi * k * m / (n + 1)) * np.sqrt(2.0 / (n + 1))
+
+
+@lru_cache(maxsize=32)
+def _dst1_basis(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_dst1_basis_np(n)).to(device=device, dtype=dtype)
+
+
+def dst2(u):
+    """Orthonormal DST-I along both axes (diagonalises the homogeneous-
+    Dirichlet 5-point Laplacian: the fast Poisson solver's transform)."""
+    sy = _dst1_basis(u.shape[0], u.dtype, u.device)
+    sx = _dst1_basis(u.shape[1], u.dtype, u.device)
+    return (sy @ u) @ sx.T

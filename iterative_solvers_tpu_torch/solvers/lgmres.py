@@ -21,6 +21,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from .. import resolve_device
 from .gmres import _arnoldi_column, _givens_step, _norm, _np_dtype
 
 
@@ -45,9 +46,12 @@ class LgmresResult(NamedTuple):
     converged: bool
 
 
-def init_recycle(shape, outer_k: int, dtype, device="cpu",
+def init_recycle(shape, outer_k: int, dtype, device="cuda",
                  store_av: bool = False) -> LgmresRecycle:
-    z = torch.zeros((outer_k,) + tuple(shape), dtype=dtype, device=device)
+    """An empty recycle buffer on ``device``; raises without a GPU unless
+    the caller passes ``device="cpu"``."""
+    z = torch.zeros((outer_k,) + tuple(shape), dtype=dtype,
+                    device=resolve_device(device))
     return LgmresRecycle(z=z, count=0,
                          az=torch.zeros_like(z) if store_av else None)
 

@@ -45,7 +45,7 @@ def test_lgmres_cycles_with_recycling_match_jax():
     ident = lambda v: v  # noqa: E731
     xj, xt = jnp.zeros(SHAPE), torch.zeros(SHAPE, dtype=torch.float64)
     recj = jlg.init_recycle(SHAPE, outer_k, jnp.float64)
-    rect = tlg.init_recycle(SHAPE, outer_k, torch.float64)
+    rect = tlg.init_recycle(SHAPE, outer_k, torch.float64, device="cpu")
     for cycle in range(4):  # fills and then rolls the recycle buffer
         rj = jnp.asarray(b) - mvj(xj)
         rt = torch.tensor(b) - mvt(xt)
@@ -113,3 +113,21 @@ def test_newton_krylov_matches_jax(case):
     assert int(oj.func_evals) == ot.func_evals
     np.testing.assert_allclose(ot.x.numpy(), np.asarray(oj.x), atol=1e-10)
     assert ot.f_norm <= 1e-10
+
+
+@pytest.mark.parametrize("helper", ["xx_op", "yy_op", "init_recycle"])
+def test_public_helpers_default_to_the_card(helper):
+    """Helpers that make a tensor default to ``device="cuda"`` and raise
+    without a GPU; ``device="cpu"`` is an explicit request."""
+    from iterative_solvers_tpu_torch.core.grid import Grid2D
+
+    grid = Grid2D(nx=5, ny=4)
+    call = {"xx_op": lambda **kw: grid.xx_op(**kw), "yy_op": lambda **kw: grid.yy_op(**kw),
+            "init_recycle": lambda **kw: tlg.init_recycle(SHAPE, 2, torch.float64, **kw).z}
+    out = call[helper](device="cpu")
+    assert out.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert call[helper]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call[helper]()
