@@ -5,15 +5,21 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
 
  1. device      — card name and power limit; TF32 off for f32 matmuls.
  2. build       — compiles every CUDA source of
-                  ``iterative_solvers_tpu_torch/ops/csrc`` into one library.
+                  ``iterative_solvers_tpu_torch/ops/csrc`` into one library;
+                  ``resources``: registers, shared memory, spills and
+                  resident blocks an SM of the two redesigned kernels.
  3. prepare     — the 1024^2 droplet state as the large-grid example
                   prepares it: the 91x61 coalescence fixture upsampled,
                   deviation-form mesh, 3 x 60 f32 PMA sweeps at dtmesh
                   1e-10, drops re-seeded.
- 4. kernel      — the droplet JVP kernel against its plain PyTorch version
-                  on the same inputs (the 91x61 fixture and the prepared
-                  1024^2 state): max|kernel - plain| <= 1e-5 max|plain|;
-                  CUDA-event times per call over back-to-back batches.
+ 4. kernel      — the fused droplet JVP kernel against its plain PyTorch
+                  version and against the earlier three-launch kernel on the
+                  same inputs: seeded synthetic stacks at 8x8, 9x23, 200x260,
+                  257x130 and 2048^2 (168 MB, above the L2: the streaming
+                  row), the 91x61 fixture and the prepared 1024^2 state;
+                  max|kernel - plain| <= 1e-5 max|plain|.  At 91x61, 1024^2
+                  and 2048^2 old and new are timed in turns (old, new, new,
+                  old): ``ms``/``device_ms`` and ``v1_ms``/``v1_device_ms``.
  5. step91      — the 91x61 f64 FD step against ``golden_droplet_step.npz``
                   (u 1e-6, q 1e-8), then the f32 kernel-mode step (converged,
                   Newton count within 1, u within 5e-7 of the FD step).
@@ -28,10 +34,13 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   ``sh_operator``) against their plain versions at 4096^2
                   f32 (the kernel bench's parity inputs, h = 40/4096,
                   r = 0.01), at the SH path's 2048^2 f32 and f64 fields and
-                  at 61x91: gate 1e-5 of max|plain| in f32, 1e-12 in f64;
-                  CUDA-event medians of the kernel, the plain version and
-                  the library yardstick (``conv2d`` of the circularly
-                  padded field), and the bound.
+                  at 24^2 and 61x91: gate 1e-5 of max|plain| in f32, 1e-12 in
+                  f64; CUDA-event medians of the kernel, the plain version
+                  and the library yardstick (``conv2d`` of the circularly
+                  padded field), and the bound.  Each ``sh_operator`` row
+                  says which of its two kernels the shape took (``path``:
+                  ``strip`` or ``tile``) and times it in turns against the
+                  tiled kernel of the earlier design (``v1_*``).
  8. stencil_bench — the kernel bench's path: each kernel chained on its own
                   output at 4096^2 f32, launch counts read around it.
  9. sh_parity   — n = 24 on the card: the CN step (default FD solver)
@@ -250,6 +259,47 @@ def device_ms(fn, calls: int = 10, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
+def in_turns(new, old) -> dict:
+    """Times of two versions of one kernel taken in turns in this process
+    (old, new, new, old), so that both see the same card in the same state:
+    event time per call through the wrapper (``ms``) and graph-replay time
+    (``device_ms``), each the mean of its two turns, the earlier version's
+    under ``v1_``; the wrappers' host time per call in microseconds is what
+    the events see beyond the device."""
+    ms, dev = {"new": [], "old": []}, {"new": [], "old": []}
+    for which, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+        ms[which].append(cuda_ms(fn))
+        dev[which].append(device_ms(fn))
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    out = {"ms": mean(ms["new"]), "device_ms": mean(dev["new"]),
+           "v1_ms": mean(ms["old"]), "v1_device_ms": mean(dev["old"]),
+           "device_ms_turns": dev["new"], "v1_device_ms_turns": dev["old"]}
+    out["host_us"] = (out["ms"] - out["device_ms"]) * 1e3
+    out["v1_host_us"] = (out["v1_ms"] - out["v1_device_ms"]) * 1e3
+    out["ratio_to_v1"] = out["device_ms"] / out["v1_device_ms"]
+    return out
+
+
+def kernel_resources() -> dict:
+    """What the compiler and the card give the two redesigned kernels:
+    registers a thread, shared-memory bytes a block, local (spill) bytes a
+    thread, resident blocks an SM, threads a block."""
+    import ctypes
+    from iterative_solvers_tpu_torch.ops import _build
+
+    keys = ("registers", "shared_bytes", "spill_bytes", "blocks_per_sm", "threads")
+    buf = (ctypes.c_int * 5)()
+    out = {}
+    lib = _build.load_library()
+    for name, call in (("droplet_jvp", lambda: lib.droplet_jvp_resources(buf)),
+                       ("sh_operator_f32", lambda: lib.sh_operator_resources(0, buf)),
+                       ("sh_operator_f64", lambda: lib.sh_operator_resources(1, buf))):
+        err = call()
+        check(err == 0, f"resources of {name}: CUDA error {err}")
+        out[name] = dict(zip(keys, buf))
+    return out
+
+
 def check_bound(label: str, dev_ms: float, bound_ms: float, nbytes: float):
     """A kernel whose bytes do not fit the L2 cannot beat its bound: if it
     does, the bound counts more than the function needs."""
@@ -323,6 +373,21 @@ def prepare_large(n: int, dev):
     return cfg, u, phi, dtmesh, float(torch.min(geom.jac))
 
 
+def synthetic_jvp_inputs(ny: int, nx: int, dev, seed: int = 7):
+    """A seeded ``(v, stack)`` pair for the droplet JVP kernel at any grid:
+    a near-identity metric (1/J, Qxx, Qyy = 1 + 0.05 N(0,1); Qxy = 0.05
+    N(0,1)) and N(0,1) coefficients c0..c3, f32, made with numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    stack = rng.standard_normal((8, ny, nx), dtype=np.float32)
+    stack[:4] *= 0.05
+    stack[:3] += 1.0
+    v = rng.standard_normal((ny, nx), dtype=np.float32)
+    return torch.tensor(v, device=dev), torch.tensor(stack, device=dev)
+
+
 # -- the Swift-Hohenberg slice ---------------------------------------------------
 
 def stencil_weights(kname: str, h: float, r: float, dtype, dev):
@@ -367,6 +432,8 @@ def stencil_kernel_rows(dev):
     cases = [((4096, 4096), torch.float32, 40.0 / 4096, 1e-5),
              ((SH_N, SH_N), torch.float32, h_sh, 1e-5),
              ((SH_N, SH_N), torch.float64, h_sh, 1e-12),
+             ((24, 24), torch.float32, 40.0 / 24, 1e-5),
+             ((24, 24), torch.float64, 40.0 / 24, 1e-12),
              ((61, 91), torch.float32, 0.37, 1e-5),
              ((61, 91), torch.float64, 0.37, 1e-12)]
     rows = {}
@@ -392,12 +459,24 @@ def stencil_kernel_rows(dev):
             bytes_ms = 2 * itemsize * npts / HBM_BYTES_PER_S * 1e3
             peak = F32_FLOP_PER_S if dtype == torch.float32 else F64_FLOP_PER_S
             ops_ms = STENCIL_FLOP_PER_POINT[kname] * npts / peak * 1e3
+            if kname == "sh_operator":
+                # the strip-marching kernel (or, by shape, the tiled one) against
+                # the tiled kernel of the earlier design, in turns
+                old = ps._sh_operator_v1(u, h, r)
+                torch.cuda.synchronize()
+                err_v1 = float((got - old).abs().max())
+                check(err_v1 <= gate * scale,
+                      f"sh_operator {label}: off the earlier kernel by {err_v1}")
+                times = dict(path=ps.sh_operator_path(u), err_vs_v1=err_v1,
+                             **in_turns(lambda: kernel[kname](u, h, r),
+                                        lambda: ps._sh_operator_v1(u, h, r)))
+            else:
+                times = dict(ms=cuda_ms(lambda: kernel[kname](u, h, r)),
+                             device_ms=device_ms(lambda: kernel[kname](u, h, r)))
             row = dict(
                 name=kname, shape=list(shape), dtype=str(dtype).removeprefix("torch."),
                 h=h, r=r, max_abs_err=err, scale=scale, gate=gate,
-                library_rel_err=float((lib - want).abs().max()) / scale,
-                ms=cuda_ms(lambda: kernel[kname](u, h, r)),
-                device_ms=device_ms(lambda: kernel[kname](u, h, r)),
+                library_rel_err=float((lib - want).abs().max()) / scale, **times,
                 plain_ms=cuda_ms(lambda: plain[kname](u, h, r)),
                 library_ms=cuda_ms(lambda: library_stencil(u, w, pad)),
                 bound_ms=max(bytes_ms, ops_ms),
@@ -1075,7 +1154,9 @@ def droplet_phases(dev):
     from iterative_solvers_tpu_torch.io import fixtures as fx
     from iterative_solvers_tpu_torch.models import droplet as dp
     from iterative_solvers_tpu_torch.ops import curvilinear
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_apply_ref, jvp_matvec
+    from iterative_solvers_tpu_torch.core.grid import Grid2D
+    from iterative_solvers_tpu_torch.ops.droplet_jvp import (
+        _jvp_matvec_v1, jvp_apply_ref, jvp_matvec)
     from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
 
     # -- 3. prepare the 1024^2 state ----------------------------------------
@@ -1086,43 +1167,68 @@ def droplet_phases(dev):
     emit({"phase": "prepare", "n": N, "seconds": time.perf_counter() - t0,
           "min_jac": min_jac, "dtmesh": dtmesh_l})
 
-    # -- 4. kernel vs plain ---------------------------------------------------
+    # -- 4. kernel vs plain and vs the earlier kernel ----------------------------
     fix, golden = fx.load_golden_step()
     cfg_s = fx.config_for(fix)
     u_s = torch.tensor(fix.u, device=dev)
     q_s = torch.tensor(fix.q, device=dev)
-    kstats = {}
-    for label, cfg, u, q, geom_fn, dt in (
-            ("91x61", cfg_s, u_s, q_s, curvilinear.mesh_geometry, 1e-5),
-            (f"{N}x{N}", cfg_l, u_l, phi_l, curvilinear.mesh_geometry_dev, DT_MAIN)):
-        grid = cfg.grid
-        geom32 = curvilinear.MeshGeometry(*(a.float() for a in geom_fn(q, grid)))
+
+    def model_inputs(cfg, u, q, geom_fn, dt):
+        geom32 = curvilinear.MeshGeometry(*(a.float() for a in geom_fn(q, cfg.grid)))
         stack = dp.jvp_field_stack(u.float(), geom32, cfg,
                                    torch.tensor(dt, dtype=torch.float32, device=dev))
         gen = torch.Generator(device=dev).manual_seed(7)
-        v = torch.randn(grid.shape, generator=gen, device=dev, dtype=torch.float32)
+        return torch.randn(cfg.grid.shape, generator=gen, device=dev,
+                           dtype=torch.float32), stack
+
+    def synthetic(ny, nx):
+        return Grid2D(nx=nx, ny=ny, xl=-2.0, xr=5.0, yb=-3.5, yt=3.5), \
+            *synthetic_jvp_inputs(ny, nx, dev)
+
+    # (label, grid, v, stack, timed): grids smaller than a tile, the 91x61
+    # fixture, a ragged grid with interior tiles whose rows are whole vectors
+    # (200x260) and one whose are not (257x130), the main path's state, and a
+    # 2048^2 stack above the L2 (168 MB: the streaming figure)
+    cases = [("8x8", *synthetic(8, 8), False),
+             ("9x23", *synthetic(9, 23), False),
+             ("91x61", cfg_s.grid, *model_inputs(cfg_s, u_s, q_s, curvilinear.mesh_geometry,
+                                                 1e-5), True),
+             ("200x260", *synthetic(200, 260), False),
+             ("257x130", *synthetic(257, 130), False),
+             (f"{N}x{N}", cfg_l.grid, *model_inputs(cfg_l, u_l, phi_l,
+                                                    curvilinear.mesh_geometry_dev, DT_MAIN),
+              True),
+             ("2048x2048", *synthetic(2048, 2048), True)]
+    kstats = {}
+    for label, grid, v, stack, timed_row in cases:
         plain = jvp_apply_ref(v, stack, grid)
         got = jvp_matvec(v, stack, grid)
+        old = _jvp_matvec_v1(v, stack, grid)
         torch.cuda.synchronize()
         err = float((got - plain).abs().max())
+        err_v1 = float((got - old).abs().max())
         scale = float(plain.abs().max())
         check(bool(torch.isfinite(got).all()), f"droplet_jvp {label}: non-finite output")
+        check(got.shape == v.shape and got.dtype == v.dtype, f"droplet_jvp {label}: shape")
         check(err <= 1e-5 * scale,
               f"droplet_jvp {label}: max err {err} > 1e-5 x {scale}")
-        ms = cuda_ms(lambda: jvp_matvec(v, stack, grid))
-        dev_ms = device_ms(lambda: jvp_matvec(v, stack, grid))
-        plain_ms = cuda_ms(lambda: jvp_apply_ref(v, stack, grid))
-        npts = grid.nx * grid.ny
-        bytes_ms = JVP_FIELDS_MOVED * 4 * npts / HBM_BYTES_PER_S * 1e3
-        ops_ms = JVP_FLOP_PER_POINT * npts / F32_FLOP_PER_S * 1e3
-        check_bound(f"droplet_jvp {label}", dev_ms, max(bytes_ms, ops_ms),
-                    JVP_FIELDS_MOVED * 4 * npts)
-        kstats[label] = dict(max_abs_err=err, scale=scale, ms=ms, device_ms=dev_ms,
-                             plain_ms=plain_ms,
-                             bound_ms=max(bytes_ms, ops_ms),
-                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        emit({"phase": "kernel", "name": "droplet_jvp", "shape": [grid.ny, grid.nx],
-              **kstats[label]})
+        check(err_v1 <= 1e-5 * scale,
+              f"droplet_jvp {label}: off the earlier kernel by {err_v1} on {scale}")
+        row = dict(max_abs_err=err, err_vs_v1=err_v1, scale=scale)
+        if timed_row:
+            npts = grid.nx * grid.ny
+            bytes_ms = JVP_FIELDS_MOVED * 4 * npts / HBM_BYTES_PER_S * 1e3
+            ops_ms = JVP_FLOP_PER_POINT * npts / F32_FLOP_PER_S * 1e3
+            row.update(in_turns(lambda: jvp_matvec(v, stack, grid),
+                                lambda: _jvp_matvec_v1(v, stack, grid)),
+                       plain_ms=cuda_ms(lambda: jvp_apply_ref(v, stack, grid), reps=7),
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            check_bound(f"droplet_jvp {label}", row["device_ms"], row["bound_ms"],
+                        JVP_FIELDS_MOVED * 4 * npts)
+        kstats[label] = row
+        emit({"phase": "kernel", "name": "droplet_jvp", "shape": [grid.ny, grid.nx], **row})
+        del plain, got, old, v, stack
 
     # -- 5. 91x61 step parity -------------------------------------------------
     dt_s = float(golden["dt"])
@@ -1250,6 +1356,8 @@ def main() -> int:
     emit({"phase": "build", "sources": sorted(p.name for p in _build.CSRC.glob("*.cu")),
           "seconds": time.perf_counter() - t0})
 
+    emit({"phase": "resources", **kernel_resources()})
+
     kstats, launches_main = droplet_phases(dev)
 
     # -- 7-10. the Swift-Hohenberg slice -------------------------------------
@@ -1264,6 +1372,8 @@ def main() -> int:
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
+    versus = ("v1_ms", "v1_device_ms", "ratio_to_v1", "host_us", "v1_host_us")
+    stream = kstats["2048x2048"]
 
     def entry(kname, row, launches):
         return {"name": kname, "route": "cuda",
@@ -1295,14 +1405,19 @@ def main() -> int:
          "launches": launches_main, "max_abs_err": big["max_abs_err"],
          "ms": big["ms"], "device_ms": big["device_ms"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"],
-         "bound_by": big["bound_by"], "library_ms": None},
+         "bound_by": big["bound_by"], "library_ms": None,
+         **{k: big[k] for k in versus},
+         "streaming_2048": {k: stream[k] for k in numbers[:-1] + versus}},
         entry("lap_periodic", rows["lap_periodic", "4096x4096_f32"],
               bench_launches["lap_periodic"]),
         {**entry("sh_operator", rows["sh_operator", f"{SH_N}x{SH_N}_f32"],
                  sh_launches["f32"] + sh_launches["f64"]),
          "launches_by_dtype": sh_launches,
+         **{k: rows["sh_operator", f"{SH_N}x{SH_N}_f32"][k] for k in versus + ("path",)},
          "f64": {"launches": sh_launches["f64"], "shape": sh64["shape"],
-                 **{k: sh64[k] for k in numbers}}},
+                 **{k: sh64[k] for k in numbers + versus + ("path",)}},
+         "streaming_4096": {k: rows["sh_operator", "4096x4096_f32"][k]
+                            for k in numbers + versus + ("path",)}},
         # rows 4 and 5 at the Poisson main path's shape, with its launches; the
         # two SpMM layouts, which only the kernel bench reaches, with the chain's
         spmv_entry("grid_dia_matvec", poisson_case, total("grid_dia_matvec"), 130,

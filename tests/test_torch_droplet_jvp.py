@@ -6,8 +6,8 @@ Built on ``golden_droplet_step.npz`` (the 91x61 coalescence state) and on a
 the gate of test_pallas_droplet: the linearisation is exact, and what
 differs is f32 rounding through ~25 stencil passes.
 
-The JAX side is imported inside the ``jx`` fixture, so the card-only test
-at the end also runs on a machine that has the port and no JAX:
+The JAX side is imported inside the ``jx`` fixture, so the card-only tests
+at the end also run on a machine that has the port and no JAX:
 ``python -m pytest --noconftest -m gpu tests/test_torch_droplet_jvp.py``.
 """
 import dataclasses
@@ -20,7 +20,9 @@ import torch
 from iterative_solvers_tpu_torch.io import convert, fixtures as tfx
 from iterative_solvers_tpu_torch.models import droplet as tdp
 from iterative_solvers_tpu_torch.ops import curvilinear as tcv
-from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_apply_ref, jvp_matvec
+from iterative_solvers_tpu_torch.core.grid import Grid2D
+from iterative_solvers_tpu_torch.ops.droplet_jvp import (
+    _jvp_matvec_v1, jvp_apply_ref, jvp_matvec)
 
 DT = 1e-5
 TOL = 2e-5
@@ -141,13 +143,19 @@ def test_wrapper_takes_plain_version_on_cpu():
                                   jvp_apply_ref(v, stack, cfg.grid).numpy())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", list(CASES))
-def test_cuda_kernel_matches_plain(case):
-    """The CUDA kernel against the plain version on the card, at 1e-5 of
-    max|plain| (the two contract their sums in another order)."""
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided when a test runs, never at import."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the droplet_jvp kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_kernel_matches_plain(cuda, case):
+    """The CUDA kernel against the plain version on the card, at 1e-5 of
+    max|plain| (the two contract their sums in another order)."""
     cfg, stack, v = _port_stack(case, "cuda")
     before = jvp_matvec.launches
     got = jvp_matvec(v, stack, cfg.grid)
@@ -155,3 +163,71 @@ def test_cuda_kernel_matches_plain(case):
     assert jvp_matvec.launches == before + 1
     _close(got.cpu().numpy(), jvp_apply_ref(v, stack, cfg.grid).cpu().numpy(),
            tol=1e-5)
+
+
+def _synthetic(ny, nx, device):
+    """A seeded near-identity metric stack and a random v on an ny x nx grid."""
+    rng = np.random.default_rng(5)
+    stack = rng.standard_normal((8, ny, nx)).astype(np.float32)
+    stack[:4] *= 0.05
+    stack[:3] += 1.0
+    v = rng.standard_normal((ny, nx)).astype(np.float32)
+    grid = Grid2D(nx=nx, ny=ny, xl=-2.0, xr=5.0, yb=-3.5, yt=3.5)
+    return grid, torch.tensor(v, device=device), torch.tensor(stack, device=device)
+
+
+# grids smaller than a tile, ragged ones whose rows are whole 16-byte vectors
+# (interior tiles take the 4-column path) and ones whose are not, 1024^2
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 8), (9, 23), (40, 16), (61, 91), (91, 61),
+                                   (128, 64), (37, 132), (257, 130), (200, 260),
+                                   (1024, 1024)])
+def test_cuda_kernel_matches_plain_and_earlier_kernel(cuda, shape):
+    grid, v, stack = _synthetic(*shape, cuda)
+    before = jvp_matvec.launches
+    got = jvp_matvec(v, stack, grid)
+    old = _jvp_matvec_v1(v, stack, grid)
+    torch.cuda.synchronize()
+    assert jvp_matvec.launches == before + 1
+    want = jvp_apply_ref(v, stack, grid).cpu().numpy()
+    _close(got.cpu().numpy(), want, tol=1e-5)
+    _close(got.cpu().numpy(), old.cpu().numpy(), tol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_on_a_sweep_of_small_grids(cuda):
+    """Every tile of these grids touches an edge or lies within a few tiles
+    of one: heights 8..50 and widths 8..150, whole 16-byte rows (the
+    4-column path with its edge strips) and ragged ones (a thread a point)."""
+    worst = 0.0
+    for ny in (8, 9, 15, 16, 17, 23, 31, 32, 33, 50):
+        for nx in (8, 12, 16, 20, 23, 60, 64, 68, 72, 129, 132, 150):
+            grid, v, stack = _synthetic(ny, nx, cuda)
+            got = jvp_matvec(v, stack, grid)
+            want = jvp_apply_ref(v, stack, grid)
+            err = float((got - want).abs().max()) / float(want.abs().max())
+            assert err <= 1e-5, (ny, nx, err)
+            worst = max(worst, err)
+    assert worst > 0.0  # the kernel ran: it does not round like the plain version
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    grid, v, stack = _synthetic(16, 24, cuda)
+    with pytest.raises(TypeError):
+        jvp_matvec(v.double(), stack, grid)
+    with pytest.raises(TypeError):
+        jvp_matvec(v, stack.half(), grid)
+    with pytest.raises(ValueError):
+        jvp_matvec(v[:, :16], stack, grid)
+    with pytest.raises(ValueError):
+        jvp_matvec(v, stack[:7], grid)
+    with pytest.raises(ValueError, match="contiguous"):
+        jvp_matvec(v.t().contiguous().t(), stack, grid)
+    with pytest.raises(ValueError):
+        small = Grid2D(nx=24, ny=4)
+        jvp_matvec(v[:4], stack[:, :4].contiguous(), small)
+    with pytest.raises(ValueError, match="same device"):
+        jvp_matvec(v, stack.cpu(), grid)
+    with pytest.raises(RuntimeError, match="no derivative rule"):
+        jvp_matvec(v.clone().requires_grad_(), stack, grid)

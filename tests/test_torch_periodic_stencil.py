@@ -100,12 +100,18 @@ GPU_CASES = {
     "2048_f32": ((2048, 2048), torch.float32, 0.625, 1e-5),
     "2048_f64": ((2048, 2048), torch.float64, 0.625, 1e-12),
     "24_f64": ((24, 24), torch.float64, 40.0 / 24, 1e-12),
+    "4_f32": ((4, 4), torch.float32, 0.37, 1e-5),
+    "24x23_f64": ((24, 23), torch.float64, 0.37, 1e-12),
     "61x91_f32": ((61, 91), torch.float32, 0.37, 1e-5),
     "61x91_f64": ((61, 91), torch.float64, 0.37, 1e-12),
+    "257x130_f64": ((257, 130), torch.float64, 0.37, 1e-12),
+    "257x132_f32": ((257, 132), torch.float32, 0.37, 1e-5),
 }
 
 
-def _cuda():
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided when a test runs, never at import."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the periodic stencil kernels have no CPU mode")
     return torch.device("cuda")
@@ -114,8 +120,8 @@ def _cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(GPU_CASES))
 @pytest.mark.parametrize("kernel", ["lap_periodic", "sh_operator"])
-def test_cuda_kernel_matches_plain(kernel, case):
-    dev = _cuda()
+def test_cuda_kernel_matches_plain(cuda, kernel, case):
+    dev = cuda
     shape, dtype, h, rel = GPU_CASES[case]
     u = torch.tensor(_field(shape), dtype=dtype, device=dev)
     wrapper = getattr(ps, f"{kernel}_kernel")
@@ -131,8 +137,27 @@ def test_cuda_kernel_matches_plain(kernel, case):
 
 
 @pytest.mark.gpu
-def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
-    dev = _cuda()
+@pytest.mark.parametrize("case", list(GPU_CASES))
+def test_cuda_sh_operator_matches_earlier_kernel(cuda, case):
+    """Whichever kernel the shape takes (strip-marching where rows are whole
+    16-byte vectors, tiled elsewhere) against the tiled kernel of the
+    earlier design on the same field; a misaligned view takes the tiled one."""
+    shape, dtype, h, rel = GPU_CASES[case]
+    u = torch.tensor(_field(shape), dtype=dtype, device=cuda)
+    vec = 16 // u.element_size()
+    assert ps.sh_operator_path(u) == ("strip" if shape[1] % vec == 0 else "tile")
+    got, old = ps.sh_operator_kernel(u, h, R), ps._sh_operator_v1(u, h, R)
+    torch.cuda.synchronize()
+    _close(got.cpu().numpy(), old.cpu().numpy(), rel)
+    shifted = torch.zeros(u.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape)
+    shifted.copy_(u)
+    assert ps.sh_operator_path(shifted) == "tile"
+    _close(ps.sh_operator_kernel(shifted, h, R).cpu().numpy(), old.cpu().numpy(), rel)
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    dev = cuda
     u = torch.zeros(16, 16, device=dev)
     with pytest.raises(TypeError):
         ps.sh_operator_kernel(u.half(), H, R)

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Tile and segment tuning of the port's two redesigned CUDA kernels on one
+GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh]``.
+
+Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
+prints what ``ptxas`` reports for the source (registers, spills, shared
+memory), checks every variant against the plain PyTorch version, and times
+it in a CUDA-graph replay of 10 captured calls (``chip_smoke.device_ms``:
+the device alone), the earlier design first and last:
+
+- ``droplet``: the fused ``droplet_jvp`` kernel at each tile shape and block
+  size of ``droplet_jvp_tile_f32`` at 1024^2 and 2048^2 f32, on a seeded
+  synthetic coefficient stack, and its two probes (the stages without the
+  copies, the copies without the stages: where the time goes);
+- ``sh``: the strip-marching ``sh_operator`` at segment heights 8..128 and
+  2, 4, 8 rows in flight, at 2048^2 f32 / f64 and 4096^2 f32.
+
+One JSON line per measurement, with the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+# variant of droplet_jvp_tile_f32 -> (tile rows, tile columns, threads, blocks an SM
+# the registers are capped for)
+JVP_TILES = {0: (16, 64, 256, 2), 1: (16, 64, 512, 2), 2: (32, 32, 512, 2)}
+# its probes: the stages without the copies, the copies without the stages
+JVP_PROBES = {3: "stages_only", 4: "copies_only"}
+
+
+def ptxas_report(source: str):
+    """Compile one source with ``-Xptxas -v`` and print the resource lines."""
+    from iterative_solvers_tpu_torch.ops import _build
+
+    out = subprocess.run(
+        ["nvcc", *_build.CUDA_FLAGS, "-Xptxas", "-v", "-c", str(_build.CSRC / source),
+         "-o", "/dev/null"], capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stderr.splitlines() if "ptxas" in ln or "spill" in ln]
+    name = None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "Used" in ln or "spill" in ln:
+            cs.emit({"phase": "ptxas", "source": source, "entry": name,
+                     "report": ln.split("info    : ")[-1].strip()})
+    if out.returncode:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"nvcc failed on {source}")
+
+
+def tune_droplet(dev):
+    import torch
+    from iterative_solvers_tpu_torch.core.grid import Grid2D
+    from iterative_solvers_tpu_torch.ops import _build, droplet_jvp as dj
+
+    ptxas_report("droplet_jvp.cu")
+    tile_fn = _build.c_function("droplet_jvp_tile_f32", dj._ARGS + [ctypes.c_int])
+    for n in (1024, 2048):
+        grid = Grid2D(nx=n, ny=n, xl=-2.0, xr=5.0, yb=-3.5, yt=3.5)
+        v, stack = cs.synthetic_jvp_inputs(n, n, dev)
+        want = dj.jvp_apply_ref(v, stack, grid)
+        scale = float(want.abs().max())
+        out = torch.empty_like(v)
+
+        def variant(k):
+            err = tile_fn(v.data_ptr(), stack.data_ptr(), out.data_ptr(), n, n,
+                          grid.dx, grid.dy,
+                          torch.cuda.current_stream(dev).cuda_stream, k)
+            if err:
+                raise RuntimeError(f"variant {k}: CUDA error {err}")
+            return out
+
+        runs = [("v1", lambda: dj._jvp_matvec_v1(v, stack, grid))]
+        runs += [(f"tile{ty}x{tx}_t{nt}_b{mb}", lambda k=k: variant(k))
+                 for k, (ty, tx, nt, mb) in JVP_TILES.items()]
+        runs += [(name, lambda k=k: variant(k)) for k, name in JVP_PROBES.items()]
+        runs += [("chosen", lambda: dj.jvp_matvec(v, stack, grid)), runs[0]]
+        for label, fn in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            row = {"phase": "tune_droplet", "n": n, "variant": label,
+                   "device_ms": cs.device_ms(fn)}
+            if label not in JVP_PROBES.values():  # a probe's output is not J v
+                err = float((got - want).abs().max())
+                row["rel_err"] = err / scale
+                cs.check(err <= 1e-5 * scale, f"{label} at {n}: error {err} on {scale}")
+            cs.emit(row)
+
+
+def tune_sh(dev):
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.ops import _build, periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops import stencils
+
+    ptxas_report("periodic_stencil.cu")
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    r = 0.01
+    for n, dtype, h, gate in ((2048, torch.float32, 0.625, 1e-5),
+                              (2048, torch.float64, 0.625, 1e-12),
+                              (4096, torch.float32, 40.0 / 4096, 1e-5)):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        fn_c = _build.c_function(f"sh_operator_strip_{tag}", args)
+        u = torch.tensor(np.random.default_rng(0).standard_normal((n, n)),
+                         dtype=dtype, device=dev)
+        want = stencils.sh_linear_operator(u, h, r)
+        scale = float(want.abs().max())
+        out = torch.empty_like(u)
+
+        def strip(seg, ahead):
+            err = fn_c(u.data_ptr(), out.data_ptr(), n, n, 1.0 / (h * h), r - 1.0,
+                       torch.cuda.current_stream(dev).cuda_stream, seg, ahead)
+            if err:
+                raise RuntimeError(f"seg {seg} ahead {ahead}: CUDA error {err}")
+            return out
+
+        runs = [("v1", lambda: ps._sh_operator_v1(u, h, r))]
+        runs += [(f"seg{seg}_ahead{ahead}", lambda s=seg, a=ahead: strip(s, a))
+                 for ahead in (2, 4, 8) for seg in (8, 16, 32, 64, 128)]
+        runs += [("chosen", lambda: ps.sh_operator_kernel(u, h, r)), runs[0]]
+        for label, fn in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            cs.emit({"phase": "tune_sh", "n": n, "dtype": tag, "variant": label,
+                     "rel_err": err / scale, "device_ms": cs.device_ms(fn)})
+            cs.check(err <= gate * scale, f"{label} at {n} {tag}: error {err} on {scale}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tune_port_kernels: needs one CUDA device", file=sys.stderr)
+        return 2
+    from iterative_solvers_tpu_torch.ops import _build
+
+    which = sys.argv[1:] or ["droplet", "sh"]
+    print(cs.nvidia_smi(), flush=True)
+    dev = torch.device("cuda")
+    _build.load_library()
+    if "droplet" in which:
+        tune_droplet(dev)
+    if "sh" in which:
+        tune_sh(dev)
+    print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
