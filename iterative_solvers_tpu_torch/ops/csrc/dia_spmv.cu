@@ -38,10 +38,49 @@
 // nrhs <= 8); the two layouts differ only in the strides of x and y.
 // Element offsets are 64-bit: nterms * ny * nx passes 2^31 at 13 fields x
 // 16384^2.
+//
+// The SpMM has two kernels, chosen by the wrapper from shape, term table
+// and address alone (ops/spmv.py::spmm_path).  The one above is the
+// "general" path: any container, any shape.  The row-slab kernel below
+// (grid_dia_matmat_slab, the "slab" path) takes containers whose signed
+// reach fits its halo (|dy| <= 8, |dx| <= one 16-byte vector; cyclic
+// shifts taken in (-n/2, n/2]) on rows of whole, aligned 16-byte vectors,
+// in both layouts.  It replaces grid_dia_matmat_pallas (:301, pallas_call
+// :279) and grid_dia_matmat_interleaved_pallas (:335, :462) for those,
+// which is where the kernel bench and block Krylov callers live.
+//
+// What bounds it: bytes, (nterms + 2 nrhs) fields (486.5 MB at 2048^2 x 8
+// f32 with 13 terms: 0.145 ms over 3.35 TB/s).  What held the general
+// kernel at half of that: a warp waits one device-memory round trip per
+// term (three dependent table loads, a branch, then its loads), with at
+// most one coefficient load in flight per thread.  The slab kernel follows
+// the TPU kernel's slab pipeline instead: a block owns a strip of W columns
+// and marches down a segment of rows in slabs of B rows; per slab it copies
+// the coefficient chunk (nterms x B x W) and the x slab with its halo
+// (nrhs x (B + 2 HY) x (W + 2 vectors), HY = 2 or 8 staged halo rows) into
+// a ring of S stages of shared memory with 16-byte cp.async, one commit
+// group per slab, so S - 1 slabs of copies are in flight while one is
+// computed; the top halo rows of a slab are copied in shared memory from
+// the previous slab's stage, so each x row is read from global memory once
+// a segment.  Halos come from the wrapped rows and columns (cyclic) or are
+// zero-filled by the copy itself (clamped: a source outside the grid then
+// adds d * 0, nothing, as in the plain version's zero padding).  A thread
+// computes CPT x RPT points of the slab for a register tile of 8
+// right-hand sides, reading each coefficient once per tile and x from
+// shared memory at offsets that are constants but for the term's (a warp
+// reads 32 neighbouring words of a row: no bank conflict at any shift);
+// the terms are summed in the table's order, as in the general kernel.
+// The segments are sized so that the grid is one wave of resident blocks.
+// What remains between it and the bound is the card's streaming rate for
+// this mix of 21 read and 8 written fields, not the arithmetic, which runs
+// under the copies: on an H100 80GB HBM3 its copies and stores alone take
+// 0.19 ms at 2048^2 x 8 f32, a plain copy of the same bytes 0.163 ms
+// (tools/tune_port_kernels.py spmm).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -228,6 +267,376 @@ int launch_grid_matmat(const T* data, const int* terms, int nterms, int cyclic,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the row-slab SpMM kernel --------------------------------------------------
+
+constexpr int kSmemPerBlock = 232448;  // 227 KB: what a block may use on sm_90
+
+// The tiling of one slab kernel: a strip of W columns, slabs of B rows with
+// HY staged halo rows each side, S stages, NT threads of which TX lie along
+// a row; a thread computes CPT columns (TX apart) x RPT rows (TY apart) of
+// each slab.  HSMEM: a slab's top 2 hy halo rows are copied in shared
+// memory from the previous slab's stage instead of from global memory, so
+// that each x row is read from global memory once a segment.
+template <class T, int W_, int B_, int S_, int TX_, int NT_, int HY_, bool HSMEM_ = true>
+struct SlabTiling {
+  using Type = T;
+  static constexpr int W = W_, B = B_, S = S_, TX = TX_, NT = NT_, HY = HY_;
+  static constexpr bool HSMEM = HSMEM_;
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));  // elements a vector
+  static constexpr int CV = W / V;   // vectors in a strip row
+  static constexpr int XV = CV + 2;  // ... with one halo vector each side
+  static constexpr int XP = XV * V;  // pitch of a staged x row, in elements
+  static constexpr int XR = B + 2 * HY;  // staged x rows a right-hand side
+  static constexpr int TY = NT / TX, CPT = W / TX, RPT = B / TY;
+  static constexpr int kLaneVectors = (XV + 31) / 32;
+  static_assert(W % V == 0 && W % TX == 0 && NT % TX == 0 && TX % 32 == 0,
+                "a row of a strip is whole vectors and whole warps");
+  static_assert(B % TY == 0, "the threads tile the slab");
+  static_assert((CV & (CV - 1)) == 0, "vectors in a strip row: a power of two");
+};
+
+// Elements of one stage: the coefficient chunk and the x slab with halos.
+template <class G>
+size_t slab_stage_elems(int nterms, int nrhs) {
+  return static_cast<size_t>(nterms) * G::B * G::W
+         + static_cast<size_t>(nrhs) * G::XR * G::XP;
+}
+
+// Dynamic shared memory of a launch: S stages and the term table (2 ints a term).
+template <class G>
+size_t slab_smem_bytes(int nterms, int nrhs) {
+  return G::S * slab_stage_elems<G>(nterms, nrhs) * sizeof(typename G::Type)
+         + 2 * sizeof(int) * static_cast<size_t>(nterms);
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+// 16 bytes from global to shared memory, asynchronously; with fill false
+// nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(fill ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Block (strip blockIdx.x, segment blockIdx.y of seg_slabs slabs).  terms:
+// nterms rows of (k, dy, dx) with |dy| <= hy <= HY, |dx| <= V, signed.
+// PROBE 1 leaves out the copies (computes from whatever shared memory
+// holds), PROBE 2 the arithmetic (copies, then stores zeros), PROBE 3 the
+// arithmetic and the stores: the tuning script's probes.
+template <class G, bool CYCLIC, int PROBE>
+__global__ void __launch_bounds__(G::NT)
+grid_dia_matmat_slab_kernel(const typename G::Type* __restrict__ data,
+                            const int* __restrict__ terms, int nterms,
+                            const typename G::Type* __restrict__ x,
+                            typename G::Type* __restrict__ y, int nrhs, int ny, int nx,
+                            int hy, size_t rhs_stride, size_t row_stride, int seg_slabs) {
+  using T = typename G::Type;
+  constexpr int W = G::W, B = G::B, S = G::S, V = G::V, XP = G::XP, XR = G::XR, HY = G::HY;
+  constexpr int kWarps = G::NT / 32;
+  constexpr size_t kXStride = static_cast<size_t>(XR) * XP;  // between staged rhs
+  extern __shared__ __align__(16) unsigned char slab_smem[];
+  T* smem = reinterpret_cast<T*>(slab_smem);
+  const size_t coef_elems = static_cast<size_t>(nterms) * B * W;
+  const size_t stage = coef_elems + static_cast<size_t>(nrhs) * kXStride;
+  int* s_k = reinterpret_cast<int*>(smem + S * stage);
+  int* s_off = s_k + nterms;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int t = tid; t < nterms; t += G::NT) {
+    s_k[t] = terms[3 * t];
+    s_off[t] = terms[3 * t + 1] * XP + terms[3 * t + 2];
+  }
+
+  const int c0 = blockIdx.x * W;
+  const int w = min(W, nx - c0);
+  const int wv = w / V;
+  const int first = blockIdx.y * seg_slabs;  // the block's slabs: first, first + 1, ...
+  const int nslab = min(seg_slabs, (ny + B - 1) / B - first);
+  const size_t field = static_cast<size_t>(ny) * nx;
+
+  // the global column of each staged vector this lane copies: one halo
+  // vector each side of the strip, wrapped (cyclic) or zero-filled; a
+  // ragged last strip puts its right halo right after its last column
+  int gcol[G::kLaneVectors];
+  bool cok[G::kLaneVectors];
+#pragma unroll
+  for (int m = 0; m < G::kLaneVectors; ++m) {
+    int gc = c0 - V + (lane + 32 * m) * V;
+    bool ok = true;
+    if constexpr (CYCLIC) {
+      if (gc < 0) gc += nx;
+      else if (gc >= nx) gc -= nx;
+    } else {
+      ok = gc >= 0 && gc < nx;
+      if (!ok) gc = 0;
+    }
+    gcol[m] = gc;
+    cok[m] = ok;
+  }
+  __syncthreads();  // the term table
+
+  // the copies of slab i into stage i % S, one commit group
+  auto issue = [&](int i) {
+    if (PROBE != 1 && i < nslab) {
+      T* cs = smem + (i % S) * stage;
+      T* xs = cs + coef_elems;
+      const int r0 = (first + i) * B;
+      const int b = min(B, ny - r0);
+      // coefficients: element e is vector e % CV of row e / CV of the chunk
+      for (int e = tid; e < nterms * B * G::CV; e += G::NT) {
+        const int v = e % G::CV, ri = e / G::CV, row = ri % B, t = ri / B;
+        if (row < b && v < wv) {
+          cp_async16(cs + static_cast<size_t>(ri) * W + v * V,
+                     data + static_cast<size_t>(s_k[t]) * field
+                         + static_cast<size_t>(r0 + row) * nx + c0 + v * V,
+                     true);
+        }
+      }
+      // x: a warp a staged row (rhs j, row), lane v its vector v; staged
+      // row HY + r holds slab row r, rows [HY - hy, HY + b + hy) are needed,
+      // and with HSMEM the top 2 hy of them of all but the segment's first
+      // slab come from the previous stage (copy_halo)
+      const int lo = HY - hy + ((G::HSMEM && i > 0) ? 2 * hy : 0), hi = HY + b + hy;
+      int j = warp / XR, row = warp % XR;
+      for (int ri = warp; ri < nrhs * XR; ri += kWarps) {
+        if (row >= lo && row < hi) {
+          int gr = r0 - HY + row;
+          bool rok = true;
+          if constexpr (CYCLIC) {
+            if (gr < 0) gr += ny;
+            else if (gr >= ny) gr -= ny;
+          } else {
+            rok = gr >= 0 && gr < ny;
+            if (!rok) gr = 0;
+          }
+          const T* src = x + static_cast<size_t>(j) * rhs_stride
+                         + static_cast<size_t>(gr) * row_stride;
+          T* dst = xs + static_cast<size_t>(ri) * XP;
+#pragma unroll
+          for (int m = 0; m < G::kLaneVectors; ++m) {
+            const int v = lane + 32 * m;
+            if (v <= wv + 1) cp_async16(dst + v * V, src + gcol[m], rok && cok[m]);
+          }
+        }
+        row += kWarps;
+        while (row >= XR) {
+          row -= XR;
+          ++j;
+        }
+      }
+    }
+    cp_async_commit();  // one group a slab, empty past the last
+  };
+
+  // HSMEM: the top 2 hy staged rows of slab i + 1 are the bottom ones of slab i
+  auto copy_halo = [&](int i) {
+    if (G::HSMEM && PROBE != 1 && i + 1 < nslab) {
+      const T* from = smem + (i % S) * stage + coef_elems;
+      T* to = smem + ((i + 1) % S) * stage + coef_elems;
+      for (int e = tid; e < nrhs * 2 * hy * G::XV; e += G::NT) {
+        const int v = e % G::XV, ri = e / G::XV, j = ri / (2 * hy), row = HY - hy + ri % (2 * hy);
+        const size_t at = static_cast<size_t>(j) * kXStride + row * XP + v * V;
+        *reinterpret_cast<uint4*>(to + at) =
+            *reinterpret_cast<const uint4*>(from + at + B * XP);
+      }
+    }
+  };
+
+  const int tx = tid % G::TX, ty = tid / G::TX;
+  auto compute = [&](int i) {
+    const T* cs = smem + (i % S) * stage;
+    const T* xs = cs + coef_elems;
+    const int r0 = (first + i) * B;
+    const int b = min(B, ny - r0);
+    for (int j0 = 0; j0 < nrhs; j0 += kRhsTile) {
+      const int nj = min(kRhsTile, nrhs - j0);
+      T acc[G::RPT][G::CPT][kRhsTile];
+#pragma unroll
+      for (int q = 0; q < G::RPT; ++q)
+#pragma unroll
+        for (int m = 0; m < G::CPT; ++m)
+#pragma unroll
+          for (int jj = 0; jj < kRhsTile; ++jj) acc[q][m][jj] = T(0);
+      if (PROBE == 0 || PROBE == 1) {
+        // every shared-memory offset below but the term's is a constant
+        const T* xj = xs + j0 * kXStride + HY * XP + V + ty * XP + tx;
+        const T* cj = cs + ty * W + tx;
+        for (int t = 0; t < nterms; ++t) {
+          const T* xt = xj + s_off[t];
+          const T* ct = cj + t * (B * W);
+#pragma unroll
+          for (int q = 0; q < G::RPT; ++q) {
+#pragma unroll
+            for (int m = 0; m < G::CPT; ++m) {
+              const T d = ct[q * G::TY * W + m * G::TX];
+#pragma unroll
+              for (int jj = 0; jj < kRhsTile; ++jj) {
+                if (jj < nj) {
+                  acc[q][m][jj] = fma_rn(d, xt[jj * kXStride + q * G::TY * XP + m * G::TX],
+                                         acc[q][m][jj]);
+                }
+              }
+            }
+          }
+        }
+      }
+      if (PROBE == 3) continue;
+#pragma unroll
+      for (int q = 0; q < G::RPT; ++q) {
+        const int row = ty + q * G::TY;
+#pragma unroll
+        for (int m = 0; m < G::CPT; ++m) {
+          const int col = tx + m * G::TX;
+          if (row < b && col < w) {
+            T* out = y + static_cast<size_t>(r0 + row) * row_stride + c0 + col;
+#pragma unroll
+            for (int jj = 0; jj < kRhsTile; ++jj) {
+              if (jj < nj) out[static_cast<size_t>(j0 + jj) * rhs_stride] = acc[q][m][jj];
+            }
+          }
+        }
+      }
+    }
+  };
+
+  for (int i = 0; i < S - 1; ++i) issue(i);
+  for (int i = 0; i < nslab; ++i) {
+    cp_async_wait<S - 2>();  // this thread's copies of slab i have landed
+    __syncthreads();         // everyone's; and stage (i - 1) % S is free
+    issue(i + S - 1);
+    copy_halo(i);
+    compute(i);
+  }
+  cp_async_wait<0>();
+}
+
+// Launch the slab kernel of tiling G.  The segments are sized so that the
+// grid is `waves` waves of resident blocks.  Returns cudaErrorInvalidValue
+// for what the kernel does not take (the wrapper's spmm_path says "general"
+// for those).
+template <class G, bool CYCLIC, int PROBE = 0>
+int launch_slab(const typename G::Type* data, const int* terms, int nterms,
+                const typename G::Type* x, typename G::Type* y, int nrhs, int ny, int nx,
+                int hy, int hx, size_t rhs_stride, size_t row_stride, cudaStream_t s,
+                int waves = 1) {
+  const auto misaligned = (reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(x)
+                           | reinterpret_cast<uintptr_t>(y)) % 16;
+  if (nterms < 0 || nrhs < 1 || ny < 1 || nx < 1 || nx % G::V || misaligned
+      || hy < 0 || hy > G::HY || hx < 0 || hx > G::V || waves < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = slab_smem_bytes<G>(nterms, nrhs);
+  if (bytes > kSmemPerBlock) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = grid_dia_matmat_slab_kernel<G, CYCLIC, PROBE>;
+  // per device: allow the dynamic shared memory once, read the SM count;
+  // per launch size: the resident blocks an SM (cached for the last size)
+  static int allowed_on = -1, sms = 0, last_device = -1, last_blocks = 0;
+  static size_t last_bytes = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device != allowed_on) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemPerBlock);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed_on = device;
+  }
+  if (device != last_device || bytes != last_bytes) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&last_blocks, kernel, G::NT, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    last_device = device;
+    last_bytes = bytes;
+  }
+  if (last_blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long strips = (nx + G::W - 1) / G::W;
+  const long long slabs = (ny + G::B - 1) / G::B;
+  long long segments = static_cast<long long>(last_blocks) * sms * waves / strips;
+  segments = segments < 1 ? 1 : (segments > slabs ? slabs : segments);
+  long long seg_slabs = (slabs + segments - 1) / segments;
+  if ((slabs + seg_slabs - 1) / seg_slabs > static_cast<long long>(kMaxGridY)) {
+    seg_slabs = (slabs + kMaxGridY - 1) / kMaxGridY;
+  }
+  segments = (slabs + seg_slabs - 1) / seg_slabs;
+  grid_dia_matmat_slab_kernel<G, CYCLIC, PROBE>
+      <<<dim3(static_cast<unsigned>(strips), static_cast<unsigned>(segments)), G::NT, bytes,
+          s>>>(data, terms, nterms, x, y, nrhs, ny, nx, hy, rhs_stride, row_stride,
+               static_cast<int>(seg_slabs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The strides of the two layouts: (nrhs, ny, nx) or (ny, nrhs, nx).
+void layout_strides(int interleaved, int nrhs, int ny, int nx, size_t* rs, size_t* ws) {
+  *rs = interleaved ? static_cast<size_t>(nx) : static_cast<size_t>(ny) * nx;
+  *ws = interleaved ? static_cast<size_t>(nrhs) * nx : static_cast<size_t>(nx);
+}
+
+// The tilings of grid_dia_matmat_slab_{f32,f64}: 256-byte strip rows (64
+// f32 / 32 f64 columns), slabs of 8 rows, 2 stages (54 KB each for 13
+// terms x 8 right-hand sides: two blocks an SM), 256 threads, halo rows
+// from the previous stage; 2 staged halo rows, or 8 where the reach needs
+// them.  Mirrored in ops/spmv.py (_SLAB_TILING) for spmm_path's
+// shared-memory check.
+template <class T, int HY>
+using SlabOf = SlabTiling<T, 64 * 4 / static_cast<int>(sizeof(T)), 8, 2,
+                          64 * 4 / static_cast<int>(sizeof(T)), 256, HY>;
+
+template <class T>
+int launch_slab_layout(const T* data, const int* terms, int nterms, const T* x, T* y,
+                       int nrhs, int ny, int nx, int cyclic, int interleaved, int hy, int hx,
+                       void* stream) {
+  size_t rs, ws;
+  layout_strides(interleaved, nrhs, ny, nx, &rs, &ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hy <= 2) {
+    using G = SlabOf<T, 2>;
+    return cyclic ? launch_slab<G, true>(data, terms, nterms, x, y, nrhs, ny, nx, hy, hx, rs, ws, s)
+                  : launch_slab<G, false>(data, terms, nterms, x, y, nrhs, ny, nx, hy, hx, rs,
+                                          ws, s);
+  }
+  using G = SlabOf<T, 8>;
+  return cyclic ? launch_slab<G, true>(data, terms, nterms, x, y, nrhs, ny, nx, hy, hx, rs, ws, s)
+                : launch_slab<G, false>(data, terms, nterms, x, y, nrhs, ny, nx, hy, hx, rs, ws,
+                                        s);
+}
+
+// the tuning script's variants of the f32 tiling (2 halo rows)
+using SlabF32 = SlabOf<float, 2>;
+using SlabGlobalHalo = SlabTiling<float, 64, 8, 2, 64, 256, 2, false>;
+using SlabS3 = SlabTiling<float, 64, 8, 3, 64, 256, 2>;
+using SlabW32 = SlabTiling<float, 32, 8, 2, 32, 256, 2>;
+using SlabW128 = SlabTiling<float, 128, 8, 2, 128, 256, 2>;
+using SlabB16 = SlabTiling<float, 64, 16, 2, 64, 256, 2>;
+using SlabCols2 = SlabTiling<float, 64, 8, 2, 32, 256, 2>;
+
+template <class K>
+int slab_resources(K kernel, int threads, size_t bytes, int* r) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  r[0] = a.numRegs;
+  r[1] = static_cast<int>(a.sharedSizeBytes + bytes);
+  r[2] = static_cast<int>(a.localSizeBytes);
+  r[4] = threads;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemPerBlock);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &r[3], kernel, threads, bytes));
+}
+
 }  // namespace
 
 // data: (nfields, ny, nx) resp. (ndiags, n) row-major; terms: nterms rows of
@@ -260,3 +669,70 @@ int launch_grid_matmat(const T* data, const int* terms, int nterms, int cyclic,
 
 DIA_SPMV_EXPORTS(float, f32)
 DIA_SPMV_EXPORTS(double, f64)
+
+// The row-slab SpMM in either layout (interleaved 0: (nrhs, ny, nx), 1:
+// (ny, nrhs, nx)).  terms: nterms rows of signed (k, dy, dx), |dy| <= hy <=
+// 8, |dx| <= hx <= 16 bytes of elements; nx a multiple of a 16-byte vector,
+// data, x and y 16-byte aligned.  Returns cudaErrorInvalidValue for
+// anything else; launches on `stream`, does not synchronise.
+extern "C" int grid_dia_matmat_slab_f32(const float* data, const int* terms, int nterms,
+                                        const float* x, float* y, int nrhs, int ny, int nx,
+                                        int cyclic, int interleaved, int hy, int hx,
+                                        void* stream) {
+  return launch_slab_layout(data, terms, nterms, x, y, nrhs, ny, nx, cyclic, interleaved, hy,
+                            hx, stream);
+}
+
+extern "C" int grid_dia_matmat_slab_f64(const double* data, const int* terms, int nterms,
+                                        const double* x, double* y, int nrhs, int ny, int nx,
+                                        int cyclic, int interleaved, int hy, int hx,
+                                        void* stream) {
+  return launch_slab_layout(data, terms, nterms, x, y, nrhs, ny, nx, cyclic, interleaved, hy,
+                            hx, stream);
+}
+
+// What the compiler and the card give the cyclic slab kernel (2 halo rows)
+// of dtype (0 f32, 1 f64) at a launch of nterms terms and nrhs right-hand
+// sides: r[0] registers a thread, r[1] shared-memory bytes a block, r[2]
+// local (spill) bytes a thread, r[3] resident blocks an SM, r[4] threads a
+// block.
+extern "C" int grid_dia_matmat_resources(int dtype, int nterms, int nrhs, int* r) {
+  if (dtype == 0) {
+    using G = SlabOf<float, 2>;
+    return slab_resources(grid_dia_matmat_slab_kernel<G, true, 0>, G::NT,
+                          slab_smem_bytes<G>(nterms, nrhs), r);
+  }
+  using G = SlabOf<double, 2>;
+  return slab_resources(grid_dia_matmat_slab_kernel<G, true, 0>, G::NT,
+                        slab_smem_bytes<G>(nterms, nrhs), r);
+}
+
+// The cyclic f32 slab kernel (2 halo rows) at other tilings and wave
+// counts, and its probes, for the tuning script (tools/tune_port_kernels.py);
+// nothing of the package calls it.  Variants and probes as in the switch.
+extern "C" int grid_dia_matmat_slab_variant_f32(const float* data, const int* terms,
+                                                int nterms, const float* x, float* y,
+                                                int nrhs, int ny, int nx, int interleaved,
+                                                int hy, int hx, void* stream, int variant) {
+  size_t rs, ws;
+  layout_strides(interleaved, nrhs, ny, nx, &rs, &ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SLAB_VARIANT(G, PROBE, WAVES)                                                    \
+  launch_slab<G, true, PROBE>(data, terms, nterms, x, y, nrhs, ny, nx, hy, hx, rs, ws, s, \
+                              WAVES)
+  switch (variant) {
+    case 0: return SLAB_VARIANT(SlabF32, 0, 1);         // the chosen tiling
+    case 1: return SLAB_VARIANT(SlabGlobalHalo, 0, 1);  // halo rows from global memory
+    case 2: return SLAB_VARIANT(SlabS3, 0, 1);          // 3 stages: one block an SM
+    case 3: return SLAB_VARIANT(SlabW32, 0, 1);
+    case 4: return SLAB_VARIANT(SlabW128, 0, 1);        // one block an SM
+    case 5: return SLAB_VARIANT(SlabB16, 0, 1);         // one block an SM
+    case 6: return SLAB_VARIANT(SlabCols2, 0, 1);       // two columns a thread
+    case 7: return SLAB_VARIANT(SlabF32, 0, 4);         // 4 waves of blocks
+    case 10: return SLAB_VARIANT(SlabF32, 1, 1);        // probe: no copies
+    case 11: return SLAB_VARIANT(SlabF32, 2, 1);        // probe: no arithmetic
+    case 12: return SLAB_VARIANT(SlabF32, 3, 1);        // probe: copies alone
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SLAB_VARIANT
+}

@@ -66,10 +66,6 @@
 // more than the interior reach: a region that touches an edge is grown to
 // hold them (grow()).  The redundant work is the halo ring: dp on
 // (TY+8)(TX+8)/(TY TX) of the points.
-//
-// droplet_jvp_v1_f32 is the earlier three-launch design (one thread per
-// point, dp, dA, dB through a device scratch, every tap a global load),
-// kept so that one run can time old against new on one card.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -160,120 +156,6 @@ __device__ __forceinline__ float flux(FA a, FV v, int c, int n, float inv_h2,
           - 4.f * a(c + 1) * (v(c - 1) - 8.f * v(c) + 8.f * v(c + 2) - v(c + 3)))
          * f288;
 }
-
-// Field accessor: f[r, c] of an (ny, nx) row-major plane.
-struct Plane {
-  const float* p;
-  int nx;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return __ldg(p + static_cast<size_t>(r) * nx + c);
-  }
-};
-
-struct Stack {
-  Plane inv_j, xx, yy, xy, c0, c1, c2, c3;
-  __device__ Stack(const float* st, int ny, int nx) {
-    const size_t P = static_cast<size_t>(ny) * nx;
-    inv_j = {st, nx};
-    xx = {st + P, nx};
-    yy = {st + 2 * P, nx};
-    xy = {st + 3 * P, nx};
-    c0 = {st + 4 * P, nx};
-    c1 = {st + 5 * P, nx};
-    c2 = {st + 6 * P, nx};
-    c3 = {st + 7 * P, nx};
-  }
-  __device__ __forceinline__ float a11(int r, int c) const {
-    const float q = xy(r, c), y = yy(r, c);
-    return (q * q + y * y) * inv_j(r, c);
-  }
-  __device__ __forceinline__ float a22(int r, int c) const {
-    const float q = xy(r, c), x = xx(r, c);
-    return (q * q + x * x) * inv_j(r, c);
-  }
-  __device__ __forceinline__ float a12(int r, int c) const {
-    return -(xy(r, c) * (xx(r, c) + yy(r, c))) * inv_j(r, c);
-  }
-};
-
-// ---- the earlier three-launch design (droplet_jvp_v1_f32) --------------------
-
-// stage 1: dp = -(v_xx + v_yy) + c0 v
-__global__ void jvp_stage_dp(const float* __restrict__ vp,
-                             const float* __restrict__ st,
-                             float* __restrict__ dp, Consts k) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= k.ny || j >= k.nx) return;
-  const Stack S(st, k.ny, k.nx);
-  const Plane v{vp, k.nx};
-
-  const float fx = flux([&](int c) { return S.a11(i, c); },
-                        [&](int c) { return v(i, c); }, j, k.nx, k.inv_dx2, k.fdx);
-  float tx = 0.f;  // d1_x(a12 * v_eta), zero on the left/right columns
-  if (j != 0 && j != k.nx - 1)
-    tx = d1([&](int c) {
-              return S.a12(i, c) * d1([&](int r) { return v(r, c); }, i, k.ny, k.sdy);
-            }, j, k.nx, k.sdx);
-  const float fy = flux([&](int r) { return S.a22(r, j); },
-                        [&](int r) { return v(r, j); }, i, k.ny, k.inv_dy2, k.fdy);
-  float ty = 0.f;  // d1_y(a12 * v_ksi), zero on the bottom/top rows
-  if (i != 0 && i != k.ny - 1)
-    ty = d1([&](int r) {
-              return S.a12(r, j) * d1([&](int c) { return v(r, c); }, j, k.nx, k.sdx);
-            }, i, k.ny, k.sdy);
-  const float ij = S.inv_j(i, j);
-  const float v_xx = (fx + tx) * ij;
-  const float v_yy = (fy + ty) * ij;
-  dp[static_cast<size_t>(i) * k.nx + j] = -(v_xx + v_yy) + S.c0(i, j) * v(i, j);
-}
-
-// stage 2: the flux components dA, dB from grad_xy(dp) (dp/dn = 0 edges)
-__global__ void jvp_stage_flux(const float* __restrict__ vp,
-                               const float* __restrict__ st,
-                               const float* __restrict__ dpp,
-                               float* __restrict__ dA, float* __restrict__ dB,
-                               Consts k) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= k.ny || j >= k.nx) return;
-  const Stack S(st, k.ny, k.nx);
-  const Plane v{vp, k.nx}, dp{dpp, k.nx};
-
-  const float dpk = (j == 0 || j == k.nx - 1)
-      ? 0.f : d1([&](int c) { return dp(i, c); }, j, k.nx, k.sdx);
-  const float dpe = (i == 0 || i == k.ny - 1)
-      ? 0.f : d1([&](int r) { return dp(r, j); }, i, k.ny, k.sdy);
-  const float ij = S.inv_j(i, j), xx = S.xx(i, j), yy = S.yy(i, j), xy = S.xy(i, j);
-  const float dpx = (yy * dpk - xy * dpe) * ij;
-  const float dpy = (-xy * dpk + xx * dpe) * ij;
-  const float c1 = S.c1(i, j), vv = v(i, j);
-  const size_t o = static_cast<size_t>(i) * k.nx + j;
-  dA[o] = dpx * c1 + S.c2(i, j) * vv;
-  dB[o] = dpy * c1 + S.c3(i, j) * vv;
-}
-
-// stage 3: out = v - dF2
-__global__ void jvp_stage_out(const float* __restrict__ vp,
-                              const float* __restrict__ st,
-                              const float* __restrict__ dAp,
-                              const float* __restrict__ dBp,
-                              float* __restrict__ out, Consts k) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= k.ny || j >= k.nx) return;
-  const Stack S(st, k.ny, k.nx);
-  const Plane v{vp, k.nx}, dA{dAp, k.nx}, dB{dBp, k.nx};
-
-  const float dak = d1([&](int c) { return dA(i, c); }, j, k.nx, k.sdx);
-  const float dae = d1([&](int r) { return dA(r, j); }, i, k.ny, k.sdy);
-  const float dbk = d1([&](int c) { return dB(i, c); }, j, k.nx, k.sdx);
-  const float dbe = d1([&](int r) { return dB(r, j); }, i, k.ny, k.sdy);
-  const float xx = S.xx(i, j), yy = S.yy(i, j), xy = S.xy(i, j);
-  const float dF2 = (yy * dak - xy * dae - xy * dbk + xx * dbe) * S.inv_j(i, j);
-  out[static_cast<size_t>(i) * k.nx + j] = v(i, j) - dF2;
-}
-
 
 // ---- the fused single-pass kernel ---------------------------------------------
 
@@ -897,31 +779,4 @@ extern "C" int droplet_jvp_tile_f32(const float* v, const float* stack, float* o
     case 4: return launch_fused<kTY, kTX, kNT, kMinBlocks, 2>(v, stack, out, k, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The earlier design.  v, out: (ny, nx) f32; stack: (8, ny, nx) f32;
-// scratch: (3, ny, nx) f32.  All contiguous, on the current device.
-// Launches on `stream` and returns the cudaError_t of the launches (0 on
-// success); does not synchronise.
-extern "C" int droplet_jvp_v1_f32(const float* v, const float* stack, float* out,
-                                  float* scratch, int ny, int nx, double dx,
-                                  double dy, void* stream) {
-  if (ny < 8 || nx < 8) return static_cast<int>(cudaErrorInvalidValue);
-  const Consts k = make_consts(ny, nx, dx, dy);
-
-  const size_t P = static_cast<size_t>(ny) * nx;
-  float* dp = scratch;
-  float* dA = scratch + P;
-  float* dB = scratch + 2 * P;
-  const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  jvp_stage_dp<<<grid, block, 0, s>>>(v, stack, dp, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  jvp_stage_flux<<<grid, block, 0, s>>>(v, stack, dp, dA, dB, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  jvp_stage_out<<<grid, block, 0, s>>>(v, stack, dA, dB, out, k);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -190,15 +190,8 @@ def _kernel():
     return c_function("droplet_jvp_f32", _ARGS)
 
 
-@lru_cache(maxsize=None)
-def _kernel_v1():
-    from ._build import c_function
-
-    return c_function("droplet_jvp_v1_f32", _ARGS[:3] + [ctypes.c_void_p] + _ARGS[3:])
-
-
 def _check(v, stack, grid: Grid2D):
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernel does not take."""
     shape = grid.shape
     if v.dtype != torch.float32 or stack.dtype != torch.float32:
         raise TypeError(f"droplet_jvp kernel takes float32, got {v.dtype} "
@@ -234,21 +227,6 @@ def jvp_matvec(v, stack, grid: Grid2D):
     if err != 0:
         raise RuntimeError(f"droplet_jvp kernel launch failed: CUDA error {err}")
     jvp_matvec.launches += 1
-    return out
-
-
-def _jvp_matvec_v1(v, stack, grid: Grid2D):
-    """The earlier three-launch kernel with its ``(3, ny, nx)`` scratch,
-    kept for one release so that old and new can be timed in one process;
-    nothing on a main path calls it and it counts no launch."""
-    _check(v, stack, grid)
-    out = torch.empty_like(v)
-    scratch = torch.empty((3, *v.shape), dtype=torch.float32, device=v.device)
-    err = _kernel_v1()(v.data_ptr(), stack.data_ptr(), out.data_ptr(),
-                       scratch.data_ptr(), grid.ny, grid.nx, grid.dx, grid.dy,
-                       torch.cuda.current_stream(v.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"droplet_jvp v1 kernel launch failed: CUDA error {err}")
     return out
 
 

@@ -19,6 +19,16 @@ the grid adds nothing whatever its coefficient, as in the plain versions.
 Each wrapper's ``.launches`` counts its kernel launches and
 ``.launches_by_dtype`` splits the count into ``"f32"`` and ``"f64"``.
 
+The SpMM has two hand-written kernels, chosen by :func:`spmm_path` from
+the container's terms, the shape and the addresses alone, never by a
+failed launch: the row-slab kernel (``"slab"``) where the signed reach of
+the terms fits its staged halo and the rows are whole, aligned 16-byte
+vectors, the one-thread-a-point kernel of the earlier design
+(``"general"``) for every other container or shape (far shifts, odd
+widths).  The two SpMM wrappers' ``.launches_by_path`` splits their count
+by path.  :func:`grid_dia_matmat_slab_sim` rehearses the slab kernel's
+data movement on the CPU.
+
 The JAX wrappers' ``block_rows`` sizes the TPU's slab pipeline and has no
 counterpart here.  The kernels have no derivative rule, as the Pallas
 kernels have none: autodiff through a CUDA call raises.
@@ -41,7 +51,9 @@ def _kernel(name: str):
     from ._build import c_function
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name.startswith("dia_flat_matvec"):
+    if name.startswith("grid_dia_matmat_slab"):
+        args = [p, p, i, p, p, i, i, i, i, i, i, i, p]
+    elif name.startswith("dia_flat_matvec"):
         args = [p, p, i, p, p, ctypes.c_longlong, p]
     elif name.startswith("grid_dia_matvec"):
         args = [p, p, i, p, p, i, i, i, p]
@@ -50,19 +62,150 @@ def _kernel(name: str):
     return c_function(name, args)
 
 
-@lru_cache(maxsize=64)
-def _grid_terms(shifts, grid, cyclic: bool, device: torch.device):
-    """The kernels' term table of a GridDIA on ``device``, built once per
-    container structure: int32 rows ``(k, dy, dx)`` in the order ``_apply``
-    sums the terms.  Cyclic shifts are reduced to ``[0, ny) x [0, nx)``;
-    clamped terms that reach no grid point are left out."""
+@lru_cache(maxsize=128)
+def _term_rows(shifts, grid, cyclic: bool, signed: bool):
+    """``(k, dy, dx)`` per term of a GridDIA in the order ``_apply`` sums
+    them.  Cyclic shifts are reduced to ``[0, n)`` (the general kernels
+    wrap by one compare and subtract) or, ``signed``, to ``(-n/2, n/2]``
+    (the slab kernel's reach); clamped terms that reach no grid point are
+    left out."""
     ny, nx = grid
     near, far = term_order(shifts, cyclic)
-    if cyclic:
-        rows = [(k, dy % ny, dx % nx) for k, dy, dx in near + far]
-    else:
-        rows = [t for t in near + far if abs(t[1]) < ny and abs(t[2]) < nx]
+    if not cyclic:
+        return tuple(t for t in near + far if abs(t[1]) < ny and abs(t[2]) < nx)
+
+    def reduce(d, n):
+        d %= n
+        return d - n if signed and d > n // 2 else d
+    return tuple((k, reduce(dy, ny), reduce(dx, nx)) for k, dy, dx in near + far)
+
+
+@lru_cache(maxsize=64)
+def _grid_terms(shifts, grid, cyclic: bool, device: torch.device):
+    """The general kernels' term table of a GridDIA on ``device``, built
+    once per container structure: int32 rows ``(k, dy, dx)``."""
+    rows = _term_rows(shifts, grid, cyclic, False)
     return torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 3)
+
+
+def _slab_rows(shifts, grid, cyclic: bool):
+    """The slab kernel's terms of a GridDIA (signed shifts) and their reach
+    ``(hy, hx)``, the largest ``|dy|`` and ``|dx|``."""
+    rows = _term_rows(shifts, grid, cyclic, True)
+    hy = max((abs(dy) for _, dy, _ in rows), default=0)
+    hx = max((abs(dx) for _, _, dx in rows), default=0)
+    return rows, hy, hx
+
+
+@lru_cache(maxsize=64)
+def _slab_terms(shifts, grid, cyclic: bool, device: torch.device):
+    """The slab kernel's term table on ``device``: int32 rows ``(k, dy, dx)``."""
+    rows = _term_rows(shifts, grid, cyclic, True)
+    return torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 3)
+
+
+# The slab kernel's tiling, as in csrc/dia_spmv.cu (SlabOf): element size
+# -> (strip columns W, slab rows B, stages S); one 16-byte halo vector each
+# side of a strip, 2 staged halo rows (8 where the reach needs more, at
+# most 8), 227 KB of shared memory a block.
+_SLAB_TILING = {4: (64, 8, 2), 8: (32, 8, 2)}
+_SLAB_MAX_HY = 8
+_SMEM_PER_BLOCK = 232448
+
+
+def _slab_smem_bytes(nterms: int, nrhs: int, hy: int, itemsize: int) -> int:
+    """Dynamic shared memory of a slab launch (``slab_smem_bytes`` in the
+    CUDA source): S stages of the coefficient chunk and the x slab with
+    its staged halo rows (2 for a reach of up to 2, else 8), and the term
+    table."""
+    w, b, stages = _SLAB_TILING[itemsize]
+    vector = 16 // itemsize
+    staged = 2 if hy <= 2 else _SLAB_MAX_HY
+    stage = nterms * b * w + nrhs * (b + 2 * staged) * (w + 2 * vector)
+    return stages * stage * itemsize + 8 * nterms
+
+
+def spmm_path(a: GridDIA, x) -> str:
+    """Which SpMM kernel takes ``A @ X`` for the stack ``x`` (either
+    layout): ``"slab"`` where the terms' signed reach fits the staged halo
+    (``|dy| <= 8``, ``|dx|`` at most one 16-byte vector), ``nx`` is a
+    multiple of a 16-byte vector, ``x`` and the coefficients are 16-byte
+    aligned and the stages fit a block's shared memory; ``"general"``
+    otherwise.  Decided from shape, terms and address alone."""
+    if x.dtype not in _DTYPES or a.data.dtype != x.dtype:
+        return "general"
+    itemsize = x.element_size()
+    vector = 16 // itemsize
+    ny, nx = a.grid
+    rows, hy, hx = _slab_rows(a.shifts, a.grid, a.cyclic)
+    nrhs = x.numel() // max(ny * nx, 1)
+    if (nx % vector or hy > _SLAB_MAX_HY or hx > vector
+            or (x.data_ptr() | a.data.data_ptr()) % 16
+            or _slab_smem_bytes(len(rows), nrhs, hy, itemsize) > _SMEM_PER_BLOCK):
+        return "general"
+    return "slab"
+
+
+def grid_dia_matmat_slab_sim(a: GridDIA, x, layout: str = "stacked", W: int = 64,
+                             B: int = 8, Hy: int = 2, Hx: int = 4):
+    """CPU rehearsal of the row-slab kernel, in plain PyTorch: ``y`` is
+    built strip by strip (``W`` columns, the last one ragged) and slab by
+    slab (``B`` rows, the last one ragged) from what the kernel stages: the
+    coefficient chunk of the slab, and the x slab in ``B + 2 Hy`` staged
+    rows of which the ``hy`` above and below the slab that the terms reach
+    are filled, with one halo vector of ``Hx`` columns each side, copied a
+    vector at a time from the wrapped rows and columns (cyclic) or
+    zero-filled (clamped), a ragged strip's right halo right after its last
+    column; the top ``2 hy`` rows of every slab but a strip's first are
+    taken from the previous slab's staged rows, as the kernel does within a
+    segment.  What the kernel does not stage is NaN, so a tap outside the
+    staged window shows.  The terms are summed in the table's order, each
+    product rounded on its own (the kernel contracts them into FMAs).  ``x``
+    is ``(nrhs, ny, nx)`` (``layout="stacked"``) or ``(ny, nrhs, nx)``
+    (``"interleaved"``)."""
+    ny, nx = a.grid
+    rows, hy, hx = _slab_rows(a.shifts, a.grid, a.cyclic)
+    if nx % Hx or W % Hx or hy > Hy or hx > Hx:
+        raise ValueError(f"the slab kernel does not take reach {(hy, hx)} on a "
+                         f"{ny} x {nx} grid with halo {(Hy, Hx)} and strips of {W}")
+    x3 = x if layout == "stacked" else x.movedim(1, 0)
+    nrhs = x3.shape[0]
+    y = torch.empty_like(x3)
+    coef = a.data[[k for k, _, _ in rows]] if rows else a.data[:0]
+    for c0 in range(0, nx, W):
+        w = min(W, nx - c0)
+        # the staged vectors of a row: one halo vector each side of the strip
+        gcol, cok = [], []
+        for v in range(w // Hx + 2):
+            gc = c0 - Hx + v * Hx
+            ok = 0 <= gc < nx
+            if a.cyclic:
+                gc, ok = gc % nx, True
+            gcol.append(gc if ok else 0)
+            cok.append(ok)
+        prev = None
+        for r0 in range(0, ny, B):
+            b = min(B, ny - r0)
+            xs = torch.full((nrhs, B + 2 * Hy, W + 2 * Hx), float("nan"), dtype=x.dtype)
+            for i in range(Hy - hy, Hy + b + hy):  # staged row Hy + r is slab row r
+                if prev is not None and i < Hy + hy:
+                    xs[:, i] = prev[:, i + B]
+                    continue
+                gr = r0 - Hy + i
+                rok = 0 <= gr < ny
+                if a.cyclic:
+                    gr, rok = gr % ny, True
+                for v, (gc, ok) in enumerate(zip(gcol, cok)):
+                    dst = xs[:, i, v * Hx:(v + 1) * Hx]
+                    dst.copy_(x3[:, gr, gc:gc + Hx] if rok and ok else torch.zeros_like(dst))
+            cs = torch.full((len(rows), B, W), float("nan"), dtype=x.dtype)
+            cs[:, :b, :w] = coef[:, r0:r0 + b, c0:c0 + w]
+            acc = torch.zeros((nrhs, b, w), dtype=x.dtype)
+            for t, (_, dy, dx) in enumerate(rows):
+                acc = acc + cs[t, :b, :w] * xs[:, Hy + dy:Hy + dy + b, Hx + dx:Hx + dx + w]
+            y[:, r0:r0 + b, c0:c0 + w] = acc
+            prev = xs
+    return y if layout == "stacked" else y.movedim(0, 1)
 
 
 @lru_cache(maxsize=64)
@@ -88,10 +231,11 @@ def _check_operands(name: str, data, x, data_shape, x_shape):
                          f"expected {tuple(x_shape)}")
 
 
-def _launch(wrapper, name: str, data, terms, x, *ints):
+def _launch(wrapper, name: str, data, terms, x, *ints, path=None):
     """Check the operands for the kernel ``name``, allocate the output,
-    launch on the current stream and count the launch on ``wrapper``;
-    raise on anything the kernel does not take."""
+    launch on the current stream and count the launch on ``wrapper`` (and
+    under ``path``) if there is one; raise on anything the kernel does not
+    take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel runs on a CUDA device, got {x.device}")
     _check_no_autodiff(x, name)
@@ -110,8 +254,11 @@ def _launch(wrapper, name: str, data, terms, x, *ints):
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[tag] += 1
+    if wrapper is not None:
+        wrapper.launches += 1
+        wrapper.launches_by_dtype[tag] += 1
+        if path is not None:
+            wrapper.launches_by_path[path] += 1
     return out
 
 
@@ -149,8 +296,33 @@ def _matmat_plain(a: GridDIA, x3):
     return torch.stack([a._apply(x3[r]) for r in range(x3.shape[0])])
 
 
+def _matmat_launch(wrapper, a: GridDIA, x, nrhs: int, interleaved: bool,
+                   path: str):
+    """Launch the SpMM kernel of ``path`` on the stack ``x`` and count it
+    on ``wrapper`` (none: counted nowhere)."""
+    ny, nx = a.grid
+    if path == "slab":
+        _, hy, hx = _slab_rows(a.shifts, a.grid, a.cyclic)
+        terms = _slab_terms(a.shifts, a.grid, a.cyclic, x.device)
+        return _launch(wrapper, "grid_dia_matmat_slab", a.data, terms, x, nrhs, ny, nx,
+                       int(a.cyclic), int(interleaved), hy, hx, path=path)
+    name = "grid_dia_matmat_interleaved" if interleaved else "grid_dia_matmat"
+    terms = _grid_terms(a.shifts, a.grid, a.cyclic, x.device)
+    return _launch(wrapper, name, a.data, terms, x, nrhs, ny, nx, int(a.cyclic),
+                   path=path)
+
+
+def _matmat_general(a: GridDIA, x, interleaved: bool = False):
+    """The general SpMM kernel on any CUDA stack, counted nowhere: for
+    timing the earlier design against the slab kernel in one process."""
+    nrhs = x.shape[1] if interleaved else x.shape[0]
+    return _matmat_launch(None, a, x, nrhs, interleaved, "general")
+
+
 def grid_dia_matmat(a: GridDIA, x3):
-    """``Y[j] = A @ X[j]`` for an ``(nrhs, ny, nx)`` stack."""
+    """``Y[j] = A @ X[j]`` for an ``(nrhs, ny, nx)`` stack: through the
+    slab kernel where :func:`spmm_path` says ``"slab"``, else through the
+    general one."""
     ny, nx = a.grid
     if x3.dim() != 3 or x3.shape[0] < 1:
         raise ValueError(f"grid_dia_matmat takes an (nrhs, ny, nx) stack, got "
@@ -160,15 +332,14 @@ def grid_dia_matmat(a: GridDIA, x3):
                     (nrhs, ny, nx))
     if x3.device.type == "cpu":
         return _matmat_plain(a, x3)
-    terms = _grid_terms(a.shifts, a.grid, a.cyclic, x3.device)
-    return _launch(grid_dia_matmat, "grid_dia_matmat", a.data, terms, x3,
-                   nrhs, ny, nx, int(a.cyclic))
+    return _matmat_launch(grid_dia_matmat, a, x3, nrhs, False, spmm_path(a, x3))
 
 
 def grid_dia_matmat_interleaved(a: GridDIA, xi):
     """``Y = A @ X`` with the right-hand sides in the row-interleaved layout
     ``(ny, nrhs, nx)``: element ``(r, j, c)`` belongs to rhs ``j``.  Block
-    Krylov callers keep their vectors in this layout."""
+    Krylov callers keep their vectors in this layout.  The kernel is chosen
+    as in :func:`grid_dia_matmat`."""
     ny, nx = a.grid
     if xi.dim() != 3 or xi.shape[1] < 1:
         raise ValueError(f"grid_dia_matmat_interleaved takes an (ny, nrhs, nx) "
@@ -178,9 +349,8 @@ def grid_dia_matmat_interleaved(a: GridDIA, xi):
                     (len(a.shifts), ny, nx), (ny, nrhs, nx))
     if xi.device.type == "cpu":
         return torch.movedim(_matmat_plain(a, torch.movedim(xi, 1, 0)), 0, 1)
-    terms = _grid_terms(a.shifts, a.grid, a.cyclic, xi.device)
-    return _launch(grid_dia_matmat_interleaved, "grid_dia_matmat_interleaved",
-                   a.data, terms, xi, nrhs, ny, nx, int(a.cyclic))
+    return _matmat_launch(grid_dia_matmat_interleaved, a, xi, nrhs, True,
+                          spmm_path(a, xi))
 
 
 WRAPPERS = (grid_dia_matvec, dia_flat_matvec, grid_dia_matmat,
@@ -192,6 +362,8 @@ def reset_launches():
     for fn in WRAPPERS:
         fn.launches = 0
         fn.launches_by_dtype = dict.fromkeys(_DTYPES.values(), 0)
+    for fn in (grid_dia_matmat, grid_dia_matmat_interleaved):
+        fn.launches_by_path = {"slab": 0, "general": 0}
 
 
 reset_launches()

@@ -21,8 +21,7 @@ from iterative_solvers_tpu_torch.io import convert, fixtures as tfx
 from iterative_solvers_tpu_torch.models import droplet as tdp
 from iterative_solvers_tpu_torch.ops import curvilinear as tcv
 from iterative_solvers_tpu_torch.core.grid import Grid2D
-from iterative_solvers_tpu_torch.ops.droplet_jvp import (
-    _jvp_matvec_v1, jvp_apply_ref, jvp_matvec)
+from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_apply_ref, jvp_matvec
 
 DT = 1e-5
 TOL = 2e-5
@@ -182,16 +181,14 @@ def _synthetic(ny, nx, device):
 @pytest.mark.parametrize("shape", [(8, 8), (9, 23), (40, 16), (61, 91), (91, 61),
                                    (128, 64), (37, 132), (257, 130), (200, 260),
                                    (1024, 1024)])
-def test_cuda_kernel_matches_plain_and_earlier_kernel(cuda, shape):
+def test_cuda_kernel_matches_plain_on_synthetic_grids(cuda, shape):
     grid, v, stack = _synthetic(*shape, cuda)
     before = jvp_matvec.launches
     got = jvp_matvec(v, stack, grid)
-    old = _jvp_matvec_v1(v, stack, grid)
     torch.cuda.synchronize()
     assert jvp_matvec.launches == before + 1
     want = jvp_apply_ref(v, stack, grid).cpu().numpy()
     _close(got.cpu().numpy(), want, tol=1e-5)
-    _close(got.cpu().numpy(), old.cpu().numpy(), tol=1e-5)
 
 
 @pytest.mark.gpu

@@ -10,7 +10,8 @@ here too, by a numpy emulation of the kernels' index logic.
 The ``gpu``-marked tests hold each CUDA kernel against its plain version
 on the card, at every row shape of the smoke run's kernel phase (f32 to
 1e-5 of max|plain|, f64 to 1e-12: the kernels contract multiply-add into
-FMA, the plain versions do not):
+FMA, the plain versions do not), and the two SpMM kernels (the row-slab
+and the general one) against each other at shapes that take each path:
 ``python -m pytest --noconftest -m gpu tests/test_torch_spmv.py``
 (the JAX side is imported inside the ``jx`` fixture, so those tests also
 run on a machine that has the port and no JAX).
@@ -407,6 +408,101 @@ def test_cuda_grid_dia_matmat_matches_plain(case, cyclic):
     assert goti.shape == xi.shape
     _close(got3.cpu(), want.cpu(), _gate(dtype))
     _close(goti.movedim(1, 0).cpu(), want.cpu(), _gate(dtype))
+
+
+def _grid_operator(kind, ny, nx):
+    """The periodic SH operator (h = sqrt(8), r = 0.5) and the Dirichlet
+    5-point Laplacian / biharmonic (h = 2) on a row-major ny x nx grid."""
+    def second_difference(n, periodic):
+        d = sp.diags([np.ones(n - 1), -2 * np.ones(n), np.ones(n - 1)], [-1, 0, 1]).tolil()
+        if periodic:
+            d[0, n - 1] = d[n - 1, 0] = 1.0
+        return d.tocsr()
+
+    periodic = kind == "sh"
+    h = H_BENCH if periodic else 2.0
+    lap = (sp.kron(sp.identity(ny), second_difference(nx, periodic))
+           + sp.kron(second_difference(ny, periodic), sp.identity(nx))) / (h * h)
+    if kind == "sh":
+        return (-(lap @ lap) - 2.0 * lap - 0.5 * sp.identity(ny * nx)).tocsr()
+    return (lap @ lap).tocsr() if kind == "biharmonic" else lap.tocsr()
+
+
+# (operator, grid, cyclic container, dtype, the SpMM path it takes): the
+# bench's shape, ragged last strips (132 = 2 x 64 + 4 f32 columns, 100 =
+# 3 x 32 + 4 f64 ones) and slabs (37 rows), clamped containers whose halo
+# is zero-filled, a width that is not whole 16-byte vectors and the
+# far-shift clamped SH container (|dy| up to ny - 1)
+SPMM_PATH_GPU_CASES = {
+    "sh_cyclic_1024_f32": ("sh", (1024, 1024), True, torch.float32, "slab"),
+    "sh_cyclic_37x132_f32": ("sh", (37, 132), True, torch.float32, "slab"),
+    "biharmonic_37x132_f32": ("biharmonic", (37, 132), False, torch.float32, "slab"),
+    "sh_cyclic_37x100_f64": ("sh", (37, 100), True, torch.float64, "slab"),
+    "dirichlet_24x24_f64": ("dirichlet", (24, 24), False, torch.float64, "slab"),
+    "sh_cyclic_37x130_f32": ("sh", (37, 130), True, torch.float32, "general"),
+    "sh_far_clamped_24_f64": ("sh", (24, 24), False, torch.float64, "general"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 11])
+@pytest.mark.parametrize("case", list(SPMM_PATH_GPU_CASES))
+def test_cuda_spmm_paths_match_plain_and_each_other(case, nrhs):
+    """Each SpMM wrapper takes the kernel ``spmm_path`` names, in both
+    layouts, and agrees with the plain version and with the general kernel
+    on random coefficients (those a clamped source outside the grid meets
+    included)."""
+    dev = _cuda()
+    kind, grid, cyclic, dtype, path = SPMM_PATH_GPU_CASES[case]
+    m = _grid_operator(kind, *grid).astype(_np_dtype(dtype))
+    a = ts.GridDIA.from_scipy(m, grid, cyclic=cyclic, device=dev)
+    a = a._replace(data=torch.tensor(_rand(tuple(a.data.shape), seed=8), dtype=dtype,
+                                     device=dev))
+    x3 = torch.tensor(_rand((nrhs,) + grid, seed=4), dtype=dtype, device=dev)
+    xi = x3.movedim(0, 1).contiguous()
+    assert spmv.spmm_path(a, x3) == path and spmv.spmm_path(a, xi) == path
+    want = spmv._matmat_plain(a, x3)
+    before = (spmv.grid_dia_matmat.launches_by_path[path],
+              spmv.grid_dia_matmat_interleaved.launches_by_path[path])
+    got3 = spmv.grid_dia_matmat(a, x3)
+    goti = spmv.grid_dia_matmat_interleaved(a, xi).movedim(1, 0)
+    general3 = spmv._matmat_general(a, x3)
+    generali = spmv._matmat_general(a, xi, interleaved=True).movedim(1, 0)
+    torch.cuda.synchronize()
+    assert (spmv.grid_dia_matmat.launches_by_path[path],
+            spmv.grid_dia_matmat_interleaved.launches_by_path[path]) == (before[0] + 1,
+                                                                          before[1] + 1)
+    for got in (got3, goti):
+        _close(got.cpu(), want.cpu(), _gate(dtype))
+        _close(got.cpu(), general3.cpu(), _gate(dtype))
+    _close(generali.cpu(), want.cpu(), _gate(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dirichlet", "biharmonic"])
+def test_cuda_slab_out_of_grid_coefficients_add_nothing(kind):
+    """The card's version of test_out_of_grid_terms_add_nothing_whatever_the_
+    coefficient: on the slab path, a clamped container whose out-of-grid
+    coefficients are 1e30 gives the untouched container's product bit for
+    bit."""
+    dev = _cuda()
+    grid = (37, 132)
+    a = ts.GridDIA.from_scipy(_grid_operator(kind, *grid).astype(np.float32), grid,
+                              device=dev)
+    data = a.data.clone()
+    for k, (dy, dx) in enumerate(a.shifts):
+        rows = torch.arange(grid[0], device=dev)[:, None] + dy
+        cols = torch.arange(grid[1], device=dev)[None, :] + dx
+        outside = (rows < 0) | (rows >= grid[0]) | (cols < 0) | (cols >= grid[1])
+        data[k][outside] = 1e30
+    assert int((data == 1e30).sum()) > 0
+    x3 = torch.tensor(_rand((3,) + grid, seed=6), dtype=torch.float32, device=dev)
+    xi = x3.movedim(0, 1).contiguous()
+    b = a._replace(data=data)
+    assert spmv.spmm_path(b, x3) == "slab" and spmv.spmm_path(b, xi) == "slab"
+    assert torch.equal(spmv.grid_dia_matmat(b, x3), spmv.grid_dia_matmat(a, x3))
+    assert torch.equal(spmv.grid_dia_matmat_interleaved(b, xi),
+                       spmv.grid_dia_matmat_interleaved(a, xi))
 
 
 @pytest.mark.gpu

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Tile and segment tuning of the port's two redesigned CUDA kernels on one
-GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh]``.
+"""Tile and segment tuning of the port's three redesigned CUDA kernels on
+one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm]``.
 
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
 memory), checks every variant against the plain PyTorch version, and times
 it in a CUDA-graph replay of 10 captured calls (``chip_smoke.device_ms``:
-the device alone), the earlier design first and last:
+the device alone), the chosen design (``droplet``) or the earlier design
+(``sh``, ``spmm``) first and last:
 
 - ``droplet``: the fused ``droplet_jvp`` kernel at each tile shape and block
   size of ``droplet_jvp_tile_f32`` at 1024^2 and 2048^2 f32, on a seeded
   synthetic coefficient stack, and its two probes (the stages without the
   copies, the copies without the stages: where the time goes);
 - ``sh``: the strip-marching ``sh_operator`` at segment heights 8..128 and
-  2, 4, 8 rows in flight, at 2048^2 f32 / f64 and 4096^2 f32.
+  2, 4, 8 rows in flight, at 2048^2 f32 / f64 and 4096^2 f32;
+- ``spmm``: the row-slab SpMM on the kernel bench's cyclic SH container
+  (13 terms) x 8 at 1024^2 and 2048^2 f32, stacked layout, at each tiling
+  of ``grid_dia_matmat_slab_variant_f32`` (strip width, slab rows, stages,
+  columns a thread, where the halo rows come from, waves), its three probes
+  (no copies; no arithmetic; copies alone), the interleaved layout, against
+  the general kernel; and, for the card's streaming rate, a plain PyTorch
+  copy, sum and add over the bytes the 2048^2 x 8 product moves.
 
 One JSON line per measurement, with the card's name and power limit first.
 """
@@ -79,11 +87,11 @@ def tune_droplet(dev):
                 raise RuntimeError(f"variant {k}: CUDA error {err}")
             return out
 
-        runs = [("v1", lambda: dj._jvp_matvec_v1(v, stack, grid))]
+        runs = [("chosen", lambda: dj.jvp_matvec(v, stack, grid))]
         runs += [(f"tile{ty}x{tx}_t{nt}_b{mb}", lambda k=k: variant(k))
                  for k, (ty, tx, nt, mb) in JVP_TILES.items()]
         runs += [(name, lambda k=k: variant(k)) for k, name in JVP_PROBES.items()]
-        runs += [("chosen", lambda: dj.jvp_matvec(v, stack, grid)), runs[0]]
+        runs += [runs[0]]
         for label, fn in runs:
             got = fn()
             torch.cuda.synchronize()
@@ -137,6 +145,97 @@ def tune_sh(dev):
             cs.check(err <= gate * scale, f"{label} at {n} {tag}: error {err} on {scale}")
 
 
+# variant of grid_dia_matmat_slab_variant_f32 -> its tiling, as in
+# csrc/dia_spmv.cu: strip columns W, slab rows B, stages S (2 blocks an SM but
+# where noted), halo rows from the previous stage but where noted
+SPMM_TILINGS = {0: "W64_B8_S2", 1: "W64_B8_S2_halo_rows_from_global",
+                2: "W64_B8_S3_one_block", 3: "W32_B8_S2", 4: "W128_B8_S2_one_block",
+                5: "W64_B16_S2_one_block", 6: "W64_B8_S2_two_columns_a_thread",
+                7: "W64_B8_S2_4_waves"}
+# its probes: the arithmetic without the copies, the copies and stores without
+# the arithmetic, the copies alone
+SPMM_PROBES = {10: "no_copies", 11: "no_arithmetic", 12: "copies_alone"}
+
+
+def stream_reference(dev, nbytes: float):
+    """The card's streaming rate on plain PyTorch calls that move about
+    ``nbytes``: a copy (read once, write once) and an add (two reads, one
+    write), in graph replay."""
+    import torch
+
+    n = int(nbytes / 8)
+    a = torch.ones(n, device=dev)
+    b = torch.ones(n, device=dev)
+    out = torch.empty(n, device=dev)
+    ms = cs.device_ms(lambda: out.copy_(a))
+    cs.emit({"phase": "tune_spmm", "variant": "torch_copy", "bytes": 8 * n,
+             "device_ms": ms, "tb_per_s": 8 * n / ms / 1e9})
+    r = torch.ones(int(nbytes * 352 / 486.5 / 4), device=dev)  # the SpMM's reads alone
+    nr = r.numel()
+    ms = cs.device_ms(lambda: r.sum())
+    cs.emit({"phase": "tune_spmm", "variant": "torch_sum", "bytes": 4 * nr,
+             "device_ms": ms, "tb_per_s": 4 * nr / ms / 1e9})
+    del r
+    n3 = int(nbytes / 12)
+    a, b, out = a[:n3], b[:n3], out[:n3]
+    ms = cs.device_ms(lambda: torch.add(a, b, out=out))
+    cs.emit({"phase": "tune_spmm", "variant": "torch_add", "bytes": 12 * n3,
+             "device_ms": ms, "tb_per_s": 12 * n3 / ms / 1e9})
+
+
+def tune_spmm(dev):
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.ops import _build, spmv
+    from iterative_solvers_tpu_torch.ops.sparse import GridDIA
+
+    ptxas_report("dia_spmv.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn_c = _build.c_function("grid_dia_matmat_slab_variant_f32",
+                             [p, p, i, p, p, i, i, i, i, i, i, p, i])
+    operators = cs.Operators()
+    stream_reference(dev, (13 + 2 * 8) * 4 * cs.SP_N2 ** 2)
+    for n in (cs.SP_N, cs.SP_N2):
+        a = GridDIA.from_scipy(operators.get("sh", n), (n, n), cyclic=True, device=dev)
+        a = a._replace(data=a.data.float())
+        x3 = torch.tensor(np.random.default_rng(4).standard_normal((8, n, n)),
+                          dtype=torch.float32, device=dev)
+        xi = x3.movedim(0, 1).contiguous()
+        want = spmv._matmat_plain(a, x3)
+        scale = float(want.abs().max())
+        _, hy, hx = spmv._slab_rows(a.shifts, a.grid, a.cyclic)
+        terms = spmv._slab_terms(a.shifts, a.grid, a.cyclic, dev)
+        out = torch.empty_like(x3)
+
+        def variant(k):
+            err = fn_c(a.data.data_ptr(), terms.data_ptr(), terms.shape[0], x3.data_ptr(),
+                       out.data_ptr(), 8, n, n, 0, hy, hx,
+                       torch.cuda.current_stream(dev).cuda_stream, k)
+            if err:
+                raise RuntimeError(f"variant {k}: CUDA error {err}")
+            return out
+
+        runs = [("general", lambda: spmv._matmat_general(a, x3))]
+        runs += [(label, lambda k=k: variant(k)) for k, label in SPMM_TILINGS.items()]
+        runs += [(name, lambda k=k: variant(k)) for k, name in SPMM_PROBES.items()]
+        runs += [("chosen", lambda: spmv.grid_dia_matmat(a, x3)),
+                 ("chosen_interleaved", lambda: spmv.grid_dia_matmat_interleaved(a, xi)),
+                 ("general_interleaved", lambda: spmv._matmat_general(a, xi, True)),
+                 runs[0]]
+        for label, fn in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            row = {"phase": "tune_spmm", "n": n, "nrhs": 8, "variant": label,
+                   "device_ms": cs.device_ms(fn)}
+            if label not in SPMM_PROBES.values():  # a probe's output is not A X
+                if label.endswith("interleaved"):
+                    got = got.movedim(1, 0)
+                err = float((got - want).abs().max())
+                row["rel_err"] = err / scale
+                cs.check(err <= 1e-5 * scale, f"{label} at {n}: error {err} on {scale}")
+            cs.emit(row)
+
+
 def main() -> int:
     import torch
 
@@ -145,7 +244,7 @@ def main() -> int:
         return 2
     from iterative_solvers_tpu_torch.ops import _build
 
-    which = sys.argv[1:] or ["droplet", "sh"]
+    which = sys.argv[1:] or ["droplet", "sh", "spmm"]
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
@@ -153,6 +252,8 @@ def main() -> int:
         tune_droplet(dev)
     if "sh" in which:
         tune_sh(dev)
+    if "spmm" in which:
+        tune_spmm(dev)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 
