@@ -96,6 +96,21 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
 16. small_models — the tridiagonal solver and the heat / wave steppers on the
                   card at their tests' sizes and tolerances, with their
                   seconds (sequential loops, launch-bound).
+17. droplet_evolve — ``evolve`` for 3 steps from the prepared 1024^2 state at
+                  dt 5e-8 with the large-grid example's long-run solver and
+                  the droplet_jvp kernel, once with f64 and once with df64
+                  outer residuals: every step converged, the dts follow the
+                  scale law recomputed from the logged states, min Jacobian
+                  > 0, the kernel launched; step times, Newton counts and
+                  launches.  Before it (``df64_residual``) the df64 residual
+                  against the f64 one at 91x61 (gate 1e-10) and at 1024^2,
+                  with the time of each.
+18. inflate_fixture — the reference's inflation of the coalescence fixture in
+                  f64 (1000 volume steps x 20 PMA sub-steps) within 1e-10 of
+                  the fixture's u and q (``golden_droplet_traj.npz``).
+19. bench91     — the port's headline bench
+                  (``iterative_solvers_tpu_torch.bench.run``, 3 reps):
+                  every step converged; its JSON line as a phase.
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -135,6 +150,7 @@ JVP_FIELDS_MOVED = 10          # v + 8 stack fields read once, out written once
 # a sub) and the 1/h^2 scale; SH two Laplacians and -lap2 - 2 lap1 + (r-1) u
 STENCIL_FLOP_PER_POINT = {"lap_periodic": 6, "sh_operator": 16}
 SH_N = 2048                    # benchmarks/run_all.py::bench_large_sh
+T0 = time.perf_counter()
 
 
 def fail(msg: str):
@@ -147,6 +163,10 @@ def check(cond, msg: str):
 
 
 def emit(obj: dict):
+    """One JSON line; a phase's line also carries the script's elapsed
+    seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1355,7 +1375,151 @@ def droplet_phases(dev):
               "kernel_share": [r["kernel_share"] for r in timed]})
     emit({"phase": "step1024_final", "launches": launches_main, "min_jac": min_jac,
           "min_spacing": float(dp.min_spacing(geom))})
-    return kstats, launches_main
+    return kstats, launches_main, (cfg_l, u_l, phi_l, dtmesh_l)
+
+
+class StepLog:
+    """Records each step a driver takes through ``models.droplet.make_step``:
+    while active, every step function it returns is wrapped so that the
+    step's host-clock ms (the device drained before and after), its input
+    and output state and its Newton count are kept in ``records``."""
+
+    def __init__(self, dp):
+        self.dp, self.orig, self.records = dp, dp.make_step, []
+
+    def __enter__(self):
+        import torch
+
+        def make_step(*args, **kw):
+            step = self.orig(*args, **kw)
+
+            def logged(u, q, dt_n, *more, **kw2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(u, q, dt_n, *more, **kw2)
+                torch.cuda.synchronize()
+                self.records.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                     "u_in": u, "u_out": out.u, "dt": dt_n,
+                                     "newton_iters": out.newton_iters,
+                                     "converged": out.converged})
+                return out
+            return logged
+
+        self.dp.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        self.dp.make_step = self.orig
+
+
+def residual_pair(dp, cfg, u, q, geometry_fn, dt, dev) -> dict:
+    """The df64 CN residual against the f64 one on one state (the state
+    perturbed by 1e-5 relative, as the df64 tests do): max |difference| and
+    the CUDA-event time of each (batches of 3 calls; both are eager chains
+    whose time is the host's enqueue)."""
+    import torch
+
+    geom = geometry_fn(q, cfg.grid)
+    F = dp.pde_rhs(u, geom, cfg)
+    x = u * (1.0 + 1e-5 * torch.cos(0.13 * torch.arange(
+        u.numel(), device=dev, dtype=u.dtype)).reshape(u.shape))
+    rdf = dp.make_cn_residual_df(u, F, geom, cfg)
+    r64 = dp.cn_residual(x, u, F, dt, geom, cfg)
+    got = rdf(x, dt)
+    torch.cuda.synchronize()
+    return {"shape": list(u.shape), "max_abs_diff": float((got - r64).abs().max()),
+            "f64_scale": float(r64.abs().max()),
+            "f64_ms": cuda_ms(lambda: dp.cn_residual(x, u, F, dt, geom, cfg),
+                              reps=5, batch=3, warmup=1),
+            "df64_ms": cuda_ms(lambda: rdf(x, dt), reps=5, batch=3, warmup=1)}
+
+
+def droplet_driver_phases(dev, prepared) -> int:
+    """Phases 17-19: the droplet drivers and the port's headline bench.
+    Returns the droplet_jvp launches of the two ``evolve`` runs."""
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch import bench
+    from iterative_solvers_tpu_torch.io import fixtures as fx
+    from iterative_solvers_tpu_torch.models import droplet as dp
+    from iterative_solvers_tpu_torch.ops import curvilinear
+    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
+
+    # -- 17. evolve at 1024^2, f64 and df64 outer residuals -----------------------
+    cfg_l, u_l, phi_l, dtmesh_l = prepared
+    # the long-run solver of the large-grid example
+    solver = NewtonKrylov(f_tol=1e-5, maxiter=14, inner_m=12, outer_k=6,
+                          inner_dtype="float32", max_backtracks=4)
+    nsteps = 3
+    launches = 0
+    fix, golden = fx.load_golden_step()
+    cfg_s = fx.config_for(fix)
+    u_s = torch.tensor(fix.u, device=dev)
+    q_s = torch.tensor(fix.q, device=dev)
+    pairs = {"91x61": residual_pair(dp, cfg_s, u_s, q_s, curvilinear.mesh_geometry,
+                                    float(golden["dt"]), dev),
+             f"{N}x{N}": residual_pair(dp, cfg_l, u_l, phi_l,
+                                       curvilinear.mesh_geometry_dev, DT_MAIN, dev)}
+    check(pairs["91x61"]["max_abs_diff"] <= 1e-10,
+          f"df64 residual off the f64 one at 91x61 by {pairs['91x61']['max_abs_diff']}")
+    emit({"phase": "df64_residual", **pairs})
+    for mode in ("f64", "df64"):
+        jvp_matvec.launches = 0
+        with StepLog(dp) as log:
+            (u, phi, t, (iters, f_norms, dts)), secs = timed(lambda: dp.evolve(
+                cfg_l, u_l, phi_l, dt=DT_MAIN, nsteps=nsteps, dtmesh=dtmesh_l,
+                pma_loops=20, solver=solver, deviation_form=True,
+                jvp_dtype="float32", jvp_kernel=True, residual_mode=mode, device=dev))
+        n_launch = jvp_matvec.launches
+        launches += n_launch
+        recs = log.records
+        check(len(recs) == nsteps, f"evolve {mode}: {len(recs)} steps logged")
+        check(all(r["converged"] for r in recs) and bool(np.all(f_norms <= solver.f_tol)),
+              f"evolve {mode} at {N}^2: a step did not converge (f_norms {f_norms.tolist()})")
+        # the dt law recomputed on the host from the logged states
+        scale, want = 1.0, []
+        for r in recs:
+            want.append(DT_MAIN * scale)
+            scale += float(np.exp(-10.0 * float(torch.sqrt(
+                torch.sum((r["u_out"] - r["u_in"]) ** 2)))))
+        check(np.allclose(dts, want, rtol=1e-12, atol=0),
+              f"evolve {mode}: dts {dts.tolist()} off the scale law {want}")
+        check(list(iters) == [r["newton_iters"] for r in recs], f"evolve {mode}: counts")
+        min_jac = float(torch.min(curvilinear.mesh_geometry_dev(phi, cfg_l.grid).jac))
+        check(min_jac > 0, f"evolve {mode}: mesh tangled, min jac {min_jac}")
+        check(bool(torch.isfinite(u).all()), f"evolve {mode}: state not finite")
+        check(n_launch > 0, f"evolve {mode} launched no droplet_jvp kernel")
+        ms = sorted(r["ms"] for r in recs)
+        emit({"phase": "droplet_evolve", "n": N, "residual_mode": mode, "dt": DT_MAIN,
+              "steps": nsteps, "step_ms": [r["ms"] for r in recs],
+              "step_ms_median": ms[len(ms) // 2], "newton_iters": iters.tolist(),
+              "f_norms": f_norms.tolist(), "dts": dts.tolist(), "t": t,
+              "launches": n_launch, "min_jac": min_jac, "seconds": secs})
+        del recs, log
+
+    # -- 18. the reference's inflation of the coalescence fixture ----------------
+    cfg_c = fx.config_for(fx.parse_name(bench.FIXTURE))
+    with np.load(fx.FIXTURES / "golden_droplet_traj.npz") as g:
+        u_fix, q_fix = (g[k].reshape(cfg_c.grid.shape) for k in ("u0", "q0"))
+    (q, u), secs = timed(lambda: dp.inflate(cfg_c, DROPS, vsteps=1000, dtmesh=5e-9,
+                                            pma_loops=20, device=dev))
+    err_q = float(np.abs(q.cpu().numpy() - q_fix).max())
+    err_u = float(np.abs(u.cpu().numpy() - u_fix).max())
+    emit({"phase": "inflate_fixture", "vsteps": 1000, "pma_loops": 20,
+          "pma_substeps": 20000, "err_q": err_q, "err_u": err_u, "seconds": secs})
+    check(err_q <= 1e-10 and err_u <= 1e-10,
+          f"inflation off the coalescence fixture: q {err_q}, u {err_u}")
+
+    # -- 19. the port's headline bench ---------------------------------------------
+    try:
+        line = bench.run(device=dev, reps=3).line
+    except RuntimeError as e:
+        fail(f"bench91: {e}")
+    check(line["worst_f_norm"] <= 1e-7 and np.isfinite(line["value"]) and line["value"] > 0,
+          f"bench91: {line}")
+    emit({"phase": "bench91", **line})
+    return launches
 
 
 def main() -> int:
@@ -1390,7 +1554,7 @@ def main() -> int:
 
     emit({"phase": "resources", **kernel_resources()})
 
-    kstats, launches_main = droplet_phases(dev)
+    kstats, launches_main, prepared = droplet_phases(dev)
 
     # -- 7-10. the Swift-Hohenberg slice -------------------------------------
     rows = stencil_kernel_rows(dev)
@@ -1400,6 +1564,9 @@ def main() -> int:
 
     # -- 11-16. the explicit-sparse layer ----------------------------------------
     sp_rows, (sp_bench_launches, sp_bench_by_path), sp_main_launches = sparse_phases(dev)
+
+    # -- 17-19. the droplet drivers and the headline bench --------------------------
+    launches_evolve = droplet_driver_phases(dev, prepared)
 
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1446,7 +1613,9 @@ def main() -> int:
         {"name": "droplet_jvp", "route": "cuda",
          "source": "iterative_solvers_tpu_torch/ops/csrc/droplet_jvp.cu",
          "replaces": "iterative_solvers_tpu/ops/pallas_droplet.py:534",
-         "launches": launches_main, "max_abs_err": big["max_abs_err"],
+         "launches": launches_main + launches_evolve,
+         "launches_by_phase": {"step1024": launches_main, "droplet_evolve": launches_evolve},
+         "max_abs_err": big["max_abs_err"],
          "ms": big["ms"], "device_ms": big["device_ms"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": None,

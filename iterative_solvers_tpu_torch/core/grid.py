@@ -72,3 +72,9 @@ class Grid2D:
 def _axis(grid: Grid2D, name: str, dtype: torch.dtype, device: torch.device):
     """A grid's coordinate vector on ``device``, copied there once."""
     return torch.as_tensor(getattr(grid, name), device=device).to(dtype)
+
+
+def square(n: int, lo: float = -1.0, hi: float = 1.0) -> Grid2D:
+    """Square ``n x n`` grid on ``[lo, hi]^2`` (the reference's PMA
+    workloads use ``[-1, 1]^2``, n = 51)."""
+    return Grid2D(nx=n, ny=n, xl=lo, xr=hi, yb=lo, yt=hi)

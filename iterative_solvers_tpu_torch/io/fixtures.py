@@ -1,7 +1,10 @@
 """Droplet fixture state (port of ``iterative_solvers_tpu/io/fixtures.py``).
 
-The port's droplet state comes from ``tests/fixtures/golden_droplet_step.npz``:
-its ``u_old``/``q_old`` are the reference's 91x61 coalescence state
+The reference serialises ``(u, q)`` line-per-node with its configuration
+in the file name (``initdrop_{kind}_{R}_{Nx}-{Ny}_{a}_{eps}_{alpha}_{gamma}_{C}.txt``):
+:func:`parse_name` reads the name, :func:`load` a file.  Without the text
+files, the state comes from ``tests/fixtures/golden_droplet_step.npz``: its
+``u_old``/``q_old`` are the reference's 91x61 coalescence state
 ``initdrop_coal_1_91-61_100_0.005_0.01_0.1_0.15.txt`` (R=1, a=100,
 eps=0.005, alpha=0.01, gamma=0.1, C=0.15), and ``u_new``/``q_new`` the
 scipy-driven CN step from it at dt=1e-5 (5 PMA sub-steps at dtmesh=3e-9).
@@ -10,11 +13,19 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
+import re
+from collections.abc import Mapping
 
 import numpy as np
 
-GOLDEN_STEP = (pathlib.Path(__file__).resolve().parents[2] / "tests"
-               / "fixtures" / "golden_droplet_step.npz")
+FIXTURES = pathlib.Path(__file__).resolve().parents[2] / "tests" / "fixtures"
+GOLDEN_STEP = FIXTURES / "golden_droplet_step.npz"
+
+_NAME_RE = re.compile(
+    r"initdrop_(?P<kind>[a-z]+)_(?P<R>[\d.]+)_(?P<nx>\d+)-(?P<ny>\d+)"
+    r"_(?P<a>[\d.]+)_(?P<eps>[\d.]+)_(?P<alpha>[\d.]+)_(?P<gamma>[\d.]+)"
+    r"_(?P<C>[\d.]+)\.txt"
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +41,36 @@ class DropletFixture:
     mackenzie_c: float
     u: np.ndarray      # (ny, nx) solution
     q: np.ndarray      # (ny, nx) mesh potential
+
+
+def parse_name(name: str) -> dict:
+    """The configuration a fixture's file name encodes: ``kind``, ``R``,
+    ``nx``, ``ny``, ``a``, ``epsilon``, ``alpha``, ``gamma`` and
+    ``mackenzie_c``."""
+    m = _NAME_RE.match(pathlib.Path(name).name)
+    if not m:
+        raise ValueError(f"not an initdrop fixture name: {name}")
+    d = m.groupdict()
+    return {
+        "kind": d["kind"], "R": float(d["R"]), "nx": int(d["nx"]),
+        "ny": int(d["ny"]), "a": float(d["a"]), "epsilon": float(d["eps"]),
+        "alpha": float(d["alpha"]), "gamma": float(d["gamma"]),
+        "mackenzie_c": float(d["C"]),
+    }
+
+
+def load(path: str | pathlib.Path) -> DropletFixture:
+    """A reference ``initdrop_*.txt`` state: one ``u q`` line per node."""
+    path = pathlib.Path(path)
+    meta = parse_name(path.name)
+    data = np.loadtxt(path)
+    n = meta["nx"] * meta["ny"]
+    if data.shape != (n, 2):
+        raise ValueError(
+            f"{path.name}: expected {n} lines of (u, q), got {data.shape}")
+    shape = (meta["ny"], meta["nx"])
+    return DropletFixture(u=data[:, 0].reshape(shape),
+                          q=data[:, 1].reshape(shape), **meta)
 
 
 def load_golden_step(path=GOLDEN_STEP) -> tuple[DropletFixture, dict]:
@@ -86,11 +127,13 @@ def upsample(fix: DropletFixture, nx: int, ny: int) -> DropletFixture:
                                q=q_id + w * dev)
 
 
-def config_for(fix: DropletFixture):
-    """DropletConfig matching a fixture's parameters."""
+def config_for(fix: DropletFixture | Mapping):
+    """DropletConfig matching a fixture's parameters; ``fix`` is a
+    :class:`DropletFixture` or the dict :func:`parse_name` returns."""
     from ..models.droplet import DropletConfig
 
+    p = fix if isinstance(fix, Mapping) else vars(fix)
     return DropletConfig(
-        R=fix.R, a=fix.a, epsilon=fix.epsilon, nx=fix.nx, ny=fix.ny,
-        alpha=fix.alpha, gamma=fix.gamma, mackenzie_c=fix.mackenzie_c,
+        R=p["R"], a=p["a"], epsilon=p["epsilon"], nx=p["nx"], ny=p["ny"],
+        alpha=p["alpha"], gamma=p["gamma"], mackenzie_c=p["mackenzie_c"],
     )

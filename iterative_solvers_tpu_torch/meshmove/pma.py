@@ -5,7 +5,9 @@
 
 applied spectrally: forward 2-D DCT, pointwise divide by ``1 - gamma Leig``,
 inverse DCT.  :func:`loop_pma` runs the explicit sub-steps as a host loop
-over device tensors (no host sync inside).
+over device tensors (no host sync inside).  :func:`solve_shifted_neumann`
+is the iterative alternative to the spectral solve (Chebyshev or CG on the
+stencil operator), :func:`mesh_steady_state` iterates to a steady mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +38,9 @@ class PMAParams:
     # e.g. "float32": run the whole PMA sub-iteration in that dtype, with
     # the increment accumulated separately (see loop_pma).  None keeps the
     # state dtype.
+    spectral_precision: str = "highest"
+    # "highest" or "high": both run the DCT matmuls in full f32 here (see
+    # ops.dct.dct2, which raises for anything lower).
 
 
 @lru_cache(maxsize=16)
@@ -65,8 +70,78 @@ def solve_pma(mon, jac, grid: Grid2D, params: PMAParams):
     if params.spectral_dtype is not None:
         q_rhs = q_rhs.to(_dtype(params.spectral_dtype))
     leig = _leig_tensor(grid, q_rhs.dtype, q_rhs.device)
-    dqdt = idct2(dct2(q_rhs) / (1.0 - params.gamma * leig))
+    prec = params.spectral_precision  # dct2 raises below "high"
+    dqdt = idct2(dct2(q_rhs, precision=prec) / (1.0 - params.gamma * leig),
+                 precision=prec)
     return dqdt.to(out_dtype)
+
+
+def neumann_laplacian(v, grid: Grid2D):
+    """3-point computational-space Laplacian with the half-sample-symmetric
+    (DCT-II) Neumann closure, over the reference's mixed ``dx*dy`` spacing:
+    the stencil form of the operator the spectral solve inverts (consistent
+    ``pi k / N`` frequencies, where :func:`pma_leig` keeps the reference's
+    ``pi k / (N-1)``)."""
+    lap_y = torch.cat([v[1:2] - v[:1], v[:-2] + v[2:] - 2.0 * v[1:-1],
+                       v[-2:-1] - v[-1:]], dim=0)
+    lap_x = torch.cat([v[:, 1:2] - v[:, :1],
+                       v[:, :-2] + v[:, 2:] - 2.0 * v[:, 1:-1],
+                       v[:, -2:-1] - v[:, -1:]], dim=1)
+    return (lap_y + lap_x) / (grid.dx * grid.dy)
+
+
+def shifted_neumann_eig_bounds(grid: Grid2D, gamma: float):
+    """Exact extreme eigenvalues of ``I - gamma * neumann_laplacian``."""
+    ey = 2.0 - 2.0 * np.cos(np.pi * (grid.ny - 1) / grid.ny)
+    ex = 2.0 - 2.0 * np.cos(np.pi * (grid.nx - 1) / grid.nx)
+    return 1.0, 1.0 + gamma * (ey + ex) / (grid.dx * grid.dy)
+
+
+def solve_shifted_neumann(rhs, grid: Grid2D, params: PMAParams, *,
+                          method: str = "chebyshev", tol: float = 1e-8,
+                          lap: Callable | None = None, maxiter: int = 2000):
+    """Iteratively solve ``(I - gamma lap_neumann) x = rhs``.
+
+    ``method="chebyshev"``: a Chebyshev iteration with the exact eigenvalue
+    bounds and a count fixed from the convergence factor (no inner
+    products, no host sync).  ``method="cg"``: conjugate gradients
+    (:func:`..solvers.cg.cg`).  ``lap`` overrides the Laplacian application.
+    """
+    gamma = params.gamma
+    lap_fn = lap if lap is not None else (lambda v: neumann_laplacian(v, grid))
+
+    def op(v):
+        return v - gamma * lap_fn(v)
+
+    lam_min, lam_max = shifted_neumann_eig_bounds(grid, gamma)
+    if method == "cg":
+        from ..solvers.cg import cg
+
+        return cg(op, rhs, tol=tol, maxiter=maxiter).x
+    if method != "chebyshev":
+        raise ValueError(f"method must be 'chebyshev' or 'cg', got {method!r}")
+
+    # Saad, "Iterative Methods for Sparse Linear Systems", alg. 12.1, with
+    # the count from rho = (sqrt(kappa) - 1) / (sqrt(kappa) + 1)
+    kappa = lam_max / lam_min
+    conv = (np.sqrt(kappa) - 1.0) / (np.sqrt(kappa) + 1.0)
+    iters = min(maxiter,
+                max(3, int(np.ceil(np.log(tol / 2.0) / np.log(conv)))))
+
+    def scalar(c):
+        return torch.tensor(c, dtype=rhs.dtype, device=rhs.device)
+
+    theta = scalar((lam_max + lam_min) / 2.0)
+    delta = scalar((lam_max - lam_min) / 2.0)
+    sigma = theta / delta
+    x, r, dvec, rho_prev = torch.zeros_like(rhs), rhs, rhs / theta, 1.0 / sigma
+    for _ in range(iters):
+        x = x + dvec
+        r = r - op(dvec)
+        rho = 1.0 / (2.0 * sigma - rho_prev)
+        dvec = rho * rho_prev * dvec + (2.0 * rho / delta) * r
+        rho_prev = rho
+    return x
 
 
 def pma_dqdt(q, u, grid: Grid2D, params: PMAParams,
@@ -108,3 +183,23 @@ def loop_pma(q, u, dt: float, loops: int, grid: Grid2D, params: PMAParams,
         acc = acc + dt * pma_dqdt(q0 + acc, um, grid, params,
                                   monitor_source, geometry_fn)
     return q + acc.to(q.dtype)
+
+
+def mesh_steady_state(q, u, dt: float, grid: Grid2D, params: PMAParams,
+                      monitor_source: Callable, atol: float,
+                      max_iters: int = 10000):
+    """Iterate the PMA to a steady mesh (the reference's ``check_mesh``):
+    stop when the largest node displacement of a sub-step is below
+    ``atol``.  One host sync a sub-step.  Returns ``(q, iterations,
+    converged)``."""
+    geom = curvilinear.mesh_geometry(q, grid)
+    x_old, y_old = geom.x, geom.y
+    i, diff = 0, float("inf")
+    while diff >= atol and i < max_iters:
+        q = q + dt * pma_dqdt(q, u, grid, params, monitor_source)
+        geom = curvilinear.mesh_geometry(q, grid)
+        diff = torch.max(torch.sqrt((geom.x - x_old) ** 2
+                                    + (geom.y - y_old) ** 2)).item()
+        x_old, y_old = geom.x, geom.y
+        i += 1
+    return q, i, diff < atol

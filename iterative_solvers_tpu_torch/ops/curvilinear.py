@@ -6,7 +6,8 @@
   determinant ``J``;
 - :func:`grad_xy` — physical-space gradient through the inverse metric;
 - :func:`laplace` — the conservative 4th-order curvilinear Laplacian with
-  its three rings of one-sided boundary formulas.
+  its three rings of one-sided boundary formulas; :func:`laplacian_xy` its
+  sum with Neumann edges.
 
 Edge writes go into tensors the stencils freshly returned, never into an
 input.
@@ -136,12 +137,26 @@ def grad_xy(v_ksi, v_eta, geom: MeshGeometry):
     return vx, vy
 
 
-def _flux_div_x(a, v, inv_h2):
+def _flux_div_x(a, v, inv_h2, edge_dtype=None):
     """Conservative 4th-order ``(a v_ksi)_ksi`` along the last axis.
 
     Columns 3..n-4 use the 4th-order conservative form; columns 1, 2, n-3,
     n-2 one-sided product rules; columns 0 and n-1 are zero.
+
+    ``edge_dtype`` (e.g. ``torch.float64``) evaluates the one-sided columns
+    from 6-column edge strips in that wider dtype and casts them back: their
+    product rules cancel ``v/h^2``-sized terms, the f32 accuracy limit at
+    fine grids.
     """
+    if edge_dtype is not None and edge_dtype != v.dtype:
+        strip = 6  # the widest one-sided formula reads 6 edge columns
+        lo = _flux_div_x(a[:, :strip].to(edge_dtype),
+                         v[:, :strip].to(edge_dtype), inv_h2)
+        hi = _flux_div_x(a[:, -strip:].to(edge_dtype),
+                         v[:, -strip:].to(edge_dtype), inv_h2)
+        out = _flux_div_x(a, v, inv_h2)
+        return torch.cat([lo[:, :3].to(v.dtype), out[:, 3:-3],
+                          hi[:, -3:].to(v.dtype)], dim=1)
     interior = (
         4.0 * a[:, 2:-4] * (v[:, :-6] - 8.0 * v[:, 1:-5] + 8.0 * v[:, 3:-3] - v[:, 4:-2])
         - (-a[:, 1:-5] + 9.0 * a[:, 2:-4] + 9.0 * a[:, 3:-3] - a[:, 4:-2])
@@ -188,22 +203,31 @@ def _flux_div_x(a, v, inv_h2):
                       cm3[:, None], cm2[:, None], zero[:, None]], dim=1)
 
 
-def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D):
+def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
+            edge_dtype=None):
     """Curvilinear Laplacian: returns ``(v_xx, v_yy)`` on the moving mesh.
 
     ``v_ksi``/``v_eta`` are the computational-space first derivatives of
-    ``v`` that feed the cross terms.
+    ``v`` that feed the cross terms.  ``edge_dtype`` widens the one-sided
+    boundary columns (see :func:`_flux_div_x`).
     """
     j = geom.jac
     a11 = (geom.xy * geom.xy + geom.yy * geom.yy) / j
     a22 = (geom.xy * geom.xy + geom.xx * geom.xx) / j
     a12 = -(geom.xy * (geom.xx + geom.yy)) / j
 
-    v_xx = _flux_div_x(a11, v, 1.0 / (grid.dx * grid.dx))
-    v_yy = _flux_div_x(a22.T, v.T, 1.0 / (grid.dy * grid.dy)).T
+    v_xx = _flux_div_x(a11, v, 1.0 / (grid.dx * grid.dx), edge_dtype)
+    v_yy = _flux_div_x(a22.T, v.T, 1.0 / (grid.dy * grid.dy), edge_dtype).T
 
     # cross terms: (A12 v_eta)_ksi with left/right edges zeroed, and
     # (A12 v_ksi)_eta with top/bottom edges zeroed
     tx = _zero_edges(stencils.d1_x(a12 * v_eta, grid.dx), rows=False)
     ty = _zero_edges(stencils.d1_y(a12 * v_ksi, grid.dy), cols=False)
     return (v_xx + tx) / j, (v_yy + ty) / j
+
+
+def laplacian_xy(v, geom: MeshGeometry, grid: Grid2D):
+    """Physical Laplacian ``v_xx + v_yy`` with homogeneous Neumann edges."""
+    v_ksi, v_eta = grad_ksi_neumann(v, grid)
+    v_xx, v_yy = laplace(v, v_ksi, v_eta, geom, grid)
+    return v_xx + v_yy

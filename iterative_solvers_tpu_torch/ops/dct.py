@@ -31,15 +31,32 @@ def _dct2_basis(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tenso
     return torch.as_tensor(_dct2_basis_np(n)).to(device=device, dtype=dtype)
 
 
-def dct2(u):
-    """Orthonormal DCT-II along both axes of a 2-D field."""
+_PRECISIONS = (None, "highest", "high")
+
+
+def _check_precision(precision):
+    """The JAX package's ``"high"`` is three bf16 passes, close to f32; the
+    nearest cuBLAS mode is TF32 (10-bit mantissa), the error class that
+    tangles the mesh.  So every accepted precision runs full-f32 matmuls
+    (``resolve_device`` keeps TF32 off), and anything lower raises."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision={precision!r}: only None, 'highest' or "
+                         "'high' (all full f32) are allowed")
+
+
+def dct2(u, precision=None):
+    """Orthonormal DCT-II along both axes of a 2-D field.  ``precision``
+    is None, ``"highest"`` or ``"high"``: all three run full-f32 matmuls."""
+    _check_precision(precision)
     cy = _dct2_basis(u.shape[0], u.dtype, u.device)
     cx = _dct2_basis(u.shape[1], u.dtype, u.device)
     return (cy @ u) @ cx.T
 
 
-def idct2(u):
-    """Inverse (orthonormal DCT-III) along both axes."""
+def idct2(u, precision=None):
+    """Inverse (orthonormal DCT-III) along both axes; ``precision`` as in
+    :func:`dct2`."""
+    _check_precision(precision)
     cy = _dct2_basis(u.shape[0], u.dtype, u.device)
     cx = _dct2_basis(u.shape[1], u.dtype, u.device)
     return (cy.T @ u) @ cx

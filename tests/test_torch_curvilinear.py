@@ -96,3 +96,43 @@ def test_mesh_geometry_matches_golden(golden):
                            geom, grid)
     np.testing.assert_allclose(vxx.numpy(), d["lap_raw_xx"], atol=1e-8)
     np.testing.assert_allclose(vyy.numpy(), d["lap_raw_yy"], atol=1e-8)
+
+
+def test_laplace_edge_dtype_matches_jax(golden):
+    """f32 inputs (the f64 geometry cast to f32, as the f32 inner Krylov
+    takes it) with the one-sided columns evaluated in f64 and cast back,
+    against the JAX package's ``edge_dtype`` path: f32 rounding, 1e-5 of
+    the result's scale (the gate of the f32 kernel comparisons); the edge
+    columns then sit closer to the f64 Laplacian than plain f32 ones do."""
+    _, kw = golden
+    q, u = _perturbed(kw)
+    jg, tg = JGrid(**kw), TGrid(**kw)
+    jgeom = jcv.MeshGeometry(*(a.astype(jnp.float32) for a in
+                               jcv.mesh_geometry(jnp.asarray(q), jg)))
+    tgeom = tcv.MeshGeometry(*(a.float() for a in
+                               tcv.mesh_geometry(torch.tensor(q), tg)))
+    ju, tu = jnp.asarray(u, jnp.float32), torch.tensor(u, dtype=torch.float32)
+    jk, je = jcv.grad_ksi_neumann(ju, jg)
+    tk, te = tcv.grad_ksi_neumann(tu, tg)
+    want = jcv.laplace(ju, jk, je, jgeom, jg, edge_dtype=jnp.float64)
+    got = tcv.laplace(tu, tk, te, tgeom, tg, edge_dtype=torch.float64)
+    f32 = tcv.laplace(tu, tk, te, tgeom, tg)
+    geom64 = tcv.mesh_geometry(torch.tensor(q), tg)
+    u64 = torch.tensor(u)
+    exact = tcv.laplace(u64, *tcv.grad_ksi_neumann(u64, tg), geom64, tg)
+    for w, t, plain, ex in zip(want, got, f32, exact):
+        assert t.dtype == torch.float32
+        _close(t.numpy(), w, tol=1e-5)
+        edge = np.r_[0:3, -3:0]
+        err_wide = np.abs(t.numpy()[:, edge] - ex.numpy()[:, edge]).max()
+        err_plain = np.abs(plain.numpy()[:, edge] - ex.numpy()[:, edge]).max()
+        assert err_wide <= err_plain
+
+
+def test_laplacian_xy_matches_jax(golden):
+    _, kw = golden
+    q, u = _perturbed(kw)
+    jg, tg = JGrid(**kw), TGrid(**kw)
+    want = jcv.laplacian_xy(jnp.asarray(u), jcv.mesh_geometry(jnp.asarray(q), jg), jg)
+    got = tcv.laplacian_xy(torch.tensor(u), tcv.mesh_geometry(torch.tensor(q), tg), tg)
+    _close(got.numpy(), want)
