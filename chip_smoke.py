@@ -109,8 +109,38 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   f64 (1000 volume steps x 20 PMA sub-steps) within 1e-10 of
                   the fixture's u and q (``golden_droplet_traj.npz``).
 19. bench91     — the port's headline bench
-                  (``iterative_solvers_tpu_torch.bench.run``, 3 reps):
+                  (``iterative_solvers_tpu_torch.bench.run``, 1 rep):
                   every step converged; its JSON line as a phase.
+20. mems_parity — the MEMS model's ``rhs_pde``, ``cn_residual``, the smoothed
+                  monitor, ``solve_pma``'s q_dt and ``compute_g`` on the card
+                  against ``golden_pma2.npz`` at the JAX tests' tolerances
+                  (rtol 1e-8 / atol 1e-6 and 1e-5; monitor 1e-10 / 1e-9; q_dt
+                  1e-9 / 1e-7; g 1e-12).
+21. mems_traj   — 3 operator-split steps against ``golden_pma2_traj.npz``
+                  (dts rtol 1e-10, u 1e-6, q 1e-8).
+22. mems_touchdown — ``examples/mems_touchdown.py``'s run (N = 51, k = 1e-4,
+                  NewtonKrylov(f_tol=6e-6, maxiter=40, inner_m=20, outer_k=8))
+                  for ``TOUCHDOWN_STEPS`` steps: u_min and dt at every step
+                  that ``benchmarks/mems_touchdown.jsonl`` records, within
+                  the gates stated at ``TOUCHDOWN_GATE_*``; every step
+                  converged; ms a step, Newton iterations a step, the min mesh
+                  spacing; one step under ``torch.profiler``.
+23. mems_bdf    — ``evolve_coupled`` with BDF(rtol=1e-3, atol=1e-6, dt0=1e-6)
+                  to t = 0.025, the first segment of
+                  ``benchmarks/mems_bdf_touchdown.jsonl``: u_min within 1e-6
+                  of its BDF value and 2.5e-5 of the split run's; the
+                  accepted and rejected counts beside the record's.
+24. mems_bdf015 — BASELINE configuration 3: the coupled system to Tf = 0.15
+                  within 1e-4 of scipy's BDF (``golden_pma_bdf_tf015.npz``)
+                  in at most 1.1 x scipy's 93 steps; its seconds.
+25. cli         — ``cli.main`` in process on the card: ``mems --steps 20``,
+                  ``mems --coupled --tf 0.002``, ``poisson --n 1000``, ``sh
+                  --n 256 --steps 2 --fast``, ``droplet --restart`` (a
+                  checkpoint of the coalescence state) ``--steps 2 --fast``
+                  with a checkpoint; each JSON line finite, the flow rate
+                  within 1e-3 of the exact series, u_min in (-1, 0), the
+                  droplet checkpoint re-loaded with its config checked, and
+                  ``droplet_jvp`` and ``sh_operator`` launched.
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -129,6 +159,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1513,12 +1544,236 @@ def droplet_driver_phases(dev, prepared) -> int:
 
     # -- 19. the port's headline bench ---------------------------------------------
     try:
-        line = bench.run(device=dev, reps=3).line
+        # one rep, not three: with the MEMS phases the whole script took
+        # 862 s on an H100 80GB HBM3 (700 W) host, and it must end inside
+        # 20 minutes; ``python -m iterative_solvers_tpu_torch.bench`` runs 7
+        line = bench.run(device=dev, reps=1).line
     except RuntimeError as e:
         fail(f"bench91: {e}")
     check(line["worst_f_norm"] <= 1e-7 and np.isfinite(line["value"]) and line["value"] > 0,
           f"bench91: {line}")
     emit({"phase": "bench91", **line})
+    return launches
+
+
+# -- the MEMS workload and the CLI ----------------------------------------------------
+
+MEMS_RECORD = ROOT / "benchmarks" / "mems_touchdown.jsonl"
+MEMS_BDF_RECORD = ROOT / "benchmarks" / "mems_bdf_touchdown.jsonl"
+TOUCHDOWN_STEPS = 81            # rows 1, 21, 41, 61, 81 of the JAX record
+# the port on the CPU over the same steps against the record's rows:
+# |du_min| <= 6.2e-14 and |ddt|/dt <= 2.2e-13 (1.2e-13 / 2.8e-13 over 121
+# steps); the gates leave ~500x that for the card's other reduction orders
+# and stay 10x inside the JAX run's own 1.2e-9 against the reference loop
+TOUCHDOWN_GATE_UMIN = 1e-10
+TOUCHDOWN_GATE_DT = 1e-10
+
+
+def mems_phases(dev) -> None:
+    """Phases 20-24: the MEMS workload at the reference's N = 51 in f64."""
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.io import fixtures as fx
+    from iterative_solvers_tpu_torch.meshmove.monitor import smooth_and_regularise
+    from iterative_solvers_tpu_torch.meshmove.pma import solve_pma
+    from iterative_solvers_tpu_torch.models import mems
+    from iterative_solvers_tpu_torch.models.droplet import min_spacing
+    from iterative_solvers_tpu_torch.ops import curvilinear
+    from iterative_solvers_tpu_torch.solvers.bdf import BDF
+    from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
+
+    # -- 20. the model's functions against golden_pma2.npz ----------------------
+    d = np.load(fx.FIXTURES / "golden_pma2.npz")
+    cfg = mems.MEMSConfig(n=int(d["n"]), p=int(d["p"]), m=int(d["m"]),
+                          beta=float(d["beta"]), lambd=float(d["lambd"]),
+                          epsilon=float(d["epsilon"]), alpha=float(d["alpha"]),
+                          gamma=float(d["gamma"]))
+    grid = cfg.grid
+
+    def field(key):
+        return torch.tensor(d[key].reshape(grid.shape), device=dev)
+
+    def err(got, key, rtol, atol):
+        """max |got - want| and whether it is inside atol + rtol |want|."""
+        want = d[key].reshape(grid.shape)
+        diff = np.abs(got.cpu().numpy() - want)
+        return float(diff.max()), bool(np.all(diff <= atol + rtol * np.abs(want)))
+
+    geom = curvilinear.mesh_geometry(field("q"), grid)
+    u = field("u")
+    mon = smooth_and_regularise(mems.monitor_source(u, geom, grid, cfg), geom.jac,
+                                grid.dx, grid.dy, cfg.smoothing_iters, 1.0)
+    rows = {
+        # tests/test_models_parity.py and tests/test_curvilinear.py tolerances
+        "rhs_pde": err(mems.rhs_pde(u, geom, cfg), "cn_term", 1e-8, 1e-6),
+        "cn_residual": err(mems.cn_residual(field("u_probe"), u, field("cn_term"),
+                                            float(d["dt"]), geom, cfg),
+                           "residual", 1e-8, 1e-5),
+        "monitor": err(mon, "monitor", 1e-10, 1e-9),
+        "q_dt": err(solve_pma(mon, geom.jac, grid, cfg.pma), "q_dt", 1e-9, 1e-7),
+    }
+    g_err = abs(mems.compute_g(u, cfg).item() - float(d["g"]))
+    emit({"phase": "mems_parity", "n": cfg.n,
+          "max_abs_err": {k: v[0] for k, v in rows.items()}, "g_err": g_err})
+    for k, (e, ok) in rows.items():
+        check(ok, f"mems_parity: {k} off golden_pma2.npz (max |diff| {e})")
+    check(g_err <= 1e-12, f"mems_parity: compute_g off by {g_err}")
+
+    # -- 21. three operator-split steps against golden_pma2_traj.npz --------------
+    g = np.load(fx.FIXTURES / "golden_pma2_traj.npz")
+    cfg = mems.MEMSConfig(k=float(g["k"]))
+    (u, q, t, dts, iters), secs = timed(lambda: mems.evolve(cfg, 3, device=dev))
+    e_dt = float(np.max(np.abs(dts - g["dts"]) / g["dts"]))
+    e_u = float(np.abs(u.cpu().numpy() - g["u"].reshape(cfg.grid.shape)).max())
+    e_q = float(np.abs(q.cpu().numpy() - g["q"].reshape(cfg.grid.shape)).max())
+    emit({"phase": "mems_traj", "steps": 3, "newton_iters": iters.tolist(),
+          "dts_rel_err": e_dt, "u_err": e_u, "q_err": e_q, "seconds": secs})
+    check(e_dt <= 1e-10 and e_u <= 1e-6 and e_q <= 1e-8,
+          f"mems_traj off golden_pma2_traj.npz: dts {e_dt}, u {e_u}, q {e_q}")
+
+    # -- 22. the touchdown run of examples/mems_touchdown.py ----------------------
+    with open(MEMS_RECORD) as f:
+        record = {r["step"]: r for r in map(json.loads, f) if "step" in r}
+    cfg = mems.MEMSConfig()
+    solver = NewtonKrylov(f_tol=6e-6, maxiter=40, inner_m=20, outer_k=8)
+    step = mems.make_step(cfg, solver, device=dev)
+    u, q = mems.initial_state(cfg, device=dev)
+    t, recs, worst = 0.0, [], {"u_min": 0.0, "dt": 0.0}
+    for s in range(1, TOUCHDOWN_STEPS + 1):
+        out, secs = timed(lambda: step(u, q))
+        u, q, t = out.u, out.q, t + out.dt
+        recs.append({"ms": secs * 1e3, "newton_iters": out.newton_iters,
+                     "converged": out.converged})
+        if s in record:
+            row = record[s]
+            recs[-1].update(u_min=float(torch.min(u)), dt=out.dt, t=t,
+                            min_spacing=float(min_spacing(
+                                curvilinear.mesh_geometry(q, cfg.grid))))
+            worst["u_min"] = max(worst["u_min"], abs(recs[-1]["u_min"] - row["u_min"]))
+            worst["dt"] = max(worst["dt"], abs(out.dt - row["dt"]) / row["dt"])
+    ms = sorted(r["ms"] for r in recs[1:])
+    compared = [s for s in record if s <= TOUCHDOWN_STEPS]
+    emit({"phase": "mems_touchdown", "steps": TOUCHDOWN_STEPS, "t": t,
+          "step_ms_median": ms[len(ms) // 2], "step_ms_first": recs[0]["ms"],
+          "step_ms_max": ms[-1], "seconds": sum(r["ms"] for r in recs) / 1e3,
+          "newton_iters_per_step": sum(r["newton_iters"] for r in recs) / len(recs),
+          "newton_iters_set": sorted({r["newton_iters"] for r in recs}),
+          "all_converged": all(r["converged"] for r in recs),
+          "rows_compared": compared,
+          "rows": {s: {k: recs[s - 1][k] for k in ("u_min", "dt", "min_spacing")}
+                   for s in compared},
+          "max_abs_du_min": worst["u_min"], "max_rel_ddt": worst["dt"],
+          "gates": {"u_min": TOUCHDOWN_GATE_UMIN, "dt_rel": TOUCHDOWN_GATE_DT}})
+    check(all(r["converged"] for r in recs), "mems_touchdown: a step did not converge")
+    check(len(compared) >= 2, f"mems_touchdown: only rows {compared} compared")
+    check(worst["u_min"] <= TOUCHDOWN_GATE_UMIN and worst["dt"] <= TOUCHDOWN_GATE_DT,
+          f"mems_touchdown off benchmarks/mems_touchdown.jsonl: {worst}")
+    emit({"phase": "mems_touchdown_profile", **device_profile(lambda: step(u, q))})
+
+    # -- 23. the coupled BDF system to the first segment of its record ----------------
+    with open(MEMS_BDF_RECORD) as f:
+        seg = [r for r in map(json.loads, f) if "t" in r and "summary" not in r][0]
+    bdf = BDF(rtol=1e-3, atol=1e-6, dt0=1e-6, max_steps=200000)
+    (u, q, res), secs = timed(lambda: mems.evolve_coupled(
+        mems.MEMSConfig(), seg["t"], bdf=bdf, device=dev))
+    u_min = float(torch.min(u))
+    # one right-hand side, eager and as the graph evolve_coupled replays, in
+    # turns (eager, graph, graph, eager), 50 calls each, on the final state
+    y = torch.stack([u, q])
+    rhs = {"eager": lambda: mems.coupled_rhs(0.0, y, mems.MEMSConfig()),
+           "graph": mems.graphed_coupled_rhs(mems.MEMSConfig(), y)}
+    rhs_ms = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = rhs[kind] if kind == "eager" else (lambda f=rhs["graph"]: f(0.0, y))
+        fn()
+        rhs_ms[kind].append(timed(lambda: [fn() for _ in range(50)])[1] * 1e3 / 50)
+    emit({"phase": "mems_bdf", "tf": seg["t"], "u_min": u_min, "t": res.t,
+          "rhs_ms_per_call": rhs_ms,
+          "accepted": res.steps, "rejected": res.rejected,
+          "newton_failures": res.newton_failures, "dt_final": res.dt_final,
+          "record": {k: seg[k] for k in ("u_min_bdf", "u_min_split", "steps_cum",
+                                         "rejected", "dt_final")},
+          "counts_as_record": (res.steps, res.rejected) == (seg["steps_cum"],
+                                                            seg["rejected"]),
+          "seconds": secs})
+    check(res.success, f"mems_bdf: stopped at t = {res.t}")
+    check(abs(u_min - seg["u_min_split"]) <= 2.5e-5 and abs(u_min - seg["u_min_bdf"]) <= 1e-6,
+          f"mems_bdf: u_min {u_min} against the record's {seg['u_min_bdf']} "
+          f"(split {seg['u_min_split']})")
+
+    # -- 24. BASELINE configuration 3: the coupled system to Tf = 0.15 -----------------
+    gold = np.load(fx.FIXTURES / "golden_pma_bdf_tf015.npz")
+    cfg = mems.MEMSConfig()
+    bdf = BDF(rtol=1e-3, atol=1e-6, dt0=1e-6, max_steps=50000)
+    (u, q, res), secs = timed(lambda: mems.evolve_coupled(cfg, float(gold["t"]),
+                                                          bdf=bdf, device=dev))
+    e_u = float(np.abs(u.cpu().numpy()
+                       - gold["y"][:cfg.n * cfg.n].reshape(cfg.grid.shape)).max())
+    emit({"phase": "mems_bdf015", "tf": float(gold["t"]), "u_err_vs_scipy": e_u,
+          "accepted": res.steps, "rejected": res.rejected,
+          "newton_failures": res.newton_failures, "scipy_steps": int(gold["nsteps"]),
+          "seconds": secs})
+    check(res.success and e_u <= 1e-4, f"mems_bdf015: u off scipy's by {e_u}")
+    check(res.steps <= 1.1 * int(gold["nsteps"]),
+          f"mems_bdf015: {res.steps} accepted steps against scipy's {int(gold['nsteps'])}")
+
+
+def cli_phase(dev, tmp: pathlib.Path) -> dict:
+    """Phase 25: ``cli.main`` in process on the card, each subcommand's JSON
+    line gated.  Returns the kernel launches of the phase."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from iterative_solvers_tpu_torch import cli
+    from iterative_solvers_tpu_torch.io import checkpoint as ck
+    from iterative_solvers_tpu_torch.io import fixtures as fx
+    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+
+    cfg = fx.config_for(fx.parse_name(
+        "initdrop_coal_1_91-61_100_0.005_0.01_0.1_0.15.txt"))
+    with np.load(fx.FIXTURES / "golden_droplet_traj.npz") as g:
+        start = tmp / "coal_start.npz"
+        ck.save(start, {k: g[k + "0"].reshape(cfg.grid.shape) for k in ("u", "q")},
+                config=cfg)
+    end = tmp / "coal_end.npz"
+    runs = {
+        "mems": ["mems", "--steps", "20"],
+        "mems_coupled": ["mems", "--coupled", "--tf", "0.002"],
+        "poisson": ["poisson", "--n", "1000"],
+        "sh": ["sh", "--n", "256", "--steps", "2", "--fast"],
+        "droplet": ["droplet", "--restart", str(start), "--steps", "2", "--fast",
+                    "--pma-loops", "20", "--checkpoint", str(end)],
+    }
+    jvp_matvec.launches = 0
+    ps.reset_launches()
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, secs = timed(lambda: cli.main([*argv, "--device", str(dev)]))
+        check(rc == 0, f"cli {name}: exit {rc}")
+        out[name] = {**json.loads(buf.getvalue().strip().splitlines()[-1]), "seconds": secs}
+    launches = {"droplet_jvp": jvp_matvec.launches,
+                "sh_operator": ps.sh_operator_kernel.launches}
+    emit({"phase": "cli", "runs": out, "launches": launches})
+    for name, line in out.items():
+        check(all(np.isfinite(v) for v in line.values() if not isinstance(v, bool)),
+              f"cli {name}: {line}")
+    check(abs(out["poisson"]["flow_rate"] - out["poisson"]["exact"]) <= 1e-3 * out["poisson"]["exact"],
+          f"cli poisson: {out['poisson']}")
+    for name in ("mems", "mems_coupled"):
+        check(-1.0 < out[name]["u_min"] < 0, f"cli {name}: {out[name]}")
+    check(out["mems_coupled"]["success"] is True, f"cli mems --coupled: {out['mems_coupled']}")
+    check(out["droplet"]["final_fnorm"] <= 1e-7 and out["droplet"]["min_spacing"] > 0,
+          f"cli droplet: {out['droplet']}")
+    fast_cfg = dataclasses.replace(cfg, spectral_dtype="float32", mesh_dtype="float32")
+    arrays, meta = ck.load(end, config=fast_cfg)
+    check(meta["step"] == 2 and all(np.isfinite(a).all() for a in arrays.values()),
+          f"cli droplet: checkpoint {meta}")
+    check(launches["droplet_jvp"] > 0 and launches["sh_operator"] > 0,
+          f"cli: kernels not launched {launches}")
     return launches
 
 
@@ -1568,6 +1823,11 @@ def main() -> int:
     # -- 17-19. the droplet drivers and the headline bench --------------------------
     launches_evolve = droplet_driver_phases(dev, prepared)
 
+    # -- 20-25. the MEMS workload and the CLI -----------------------------------------
+    mems_phases(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = cli_phase(dev, pathlib.Path(tmp))
+
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -1613,8 +1873,9 @@ def main() -> int:
         {"name": "droplet_jvp", "route": "cuda",
          "source": "iterative_solvers_tpu_torch/ops/csrc/droplet_jvp.cu",
          "replaces": "iterative_solvers_tpu/ops/pallas_droplet.py:534",
-         "launches": launches_main + launches_evolve,
-         "launches_by_phase": {"step1024": launches_main, "droplet_evolve": launches_evolve},
+         "launches": launches_main + launches_evolve + cli_launches["droplet_jvp"],
+         "launches_by_phase": {"step1024": launches_main, "droplet_evolve": launches_evolve,
+                               "cli": cli_launches["droplet_jvp"]},
          "max_abs_err": big["max_abs_err"],
          "ms": big["ms"], "device_ms": big["device_ms"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"],
@@ -1623,8 +1884,10 @@ def main() -> int:
         entry("lap_periodic", rows["lap_periodic", "4096x4096_f32"],
               bench_launches["lap_periodic"]),
         {**entry("sh_operator", rows["sh_operator", f"{SH_N}x{SH_N}_f32"],
-                 sh_launches["f32"] + sh_launches["f64"]),
+                 sh_launches["f32"] + sh_launches["f64"] + cli_launches["sh_operator"]),
          "launches_by_dtype": sh_launches,
+         "launches_by_phase": {"sh2048": sh_launches["f32"] + sh_launches["f64"],
+                               "cli": cli_launches["sh_operator"]},
          **{k: rows["sh_operator", f"{SH_N}x{SH_N}_f32"][k] for k in versus + ("path",)},
          "f64": {"launches": sh_launches["f64"], "shape": sh64["shape"],
                  **{k: sh64[k] for k in numbers + versus + ("path",)}},

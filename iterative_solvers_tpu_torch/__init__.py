@@ -11,13 +11,20 @@ layout and function names so each counterpart is easy to find:
                  wrappers and build: the droplet JVP matvec, the periodic
                  stencils, the diagonal-format SpMV / SpMM
 - ``meshmove`` — monitor smoothing and the parabolic Monge–Ampère mesh loop
-- ``solvers``  — GMRES, LGMRES with outer-vector recycling, CG and
-                 Jacobian-free Newton–Krylov as host-side loops over device
-                 tensors; DST direct solvers, preconditioners, tridiagonal LU
+- ``solvers``  — GMRES, LGMRES with outer-vector recycling, CG,
+                 Jacobian-free Newton–Krylov and the variable-order BDF
+                 integrator as host-side loops over device tensors; the
+                 backoff stepper; DST direct solvers, preconditioners,
+                 tridiagonal LU
 - ``models``   — the moving-mesh thin-film droplet step, Swift–Hohenberg,
+                 the MEMS touchdown problem (operator-split and coupled),
                  the Poisson duct flow, the 1-D heat and the wave steppers
-- ``io``       — the golden fixture state and conversion of JAX-side state
-- ``utils``    — byte and operation counts of the hot kernels
+- ``io``       — the golden fixture state, checkpoints, and conversion of
+                 JAX-side state
+- ``utils``    — byte and operation counts of the hot kernels, metrics,
+                 timers, offline rendering
+- ``cli``      — ``python -m iterative_solvers_tpu_torch.cli
+                 {sh,droplet,mems,poisson}``
 
 It imports ``torch`` (and numpy/scipy) only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``; with no GPU present and no
@@ -25,6 +32,7 @@ explicit CPU request they raise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
@@ -48,3 +56,10 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
     return dev
+
+
+def to_numpy(a):
+    """A tensor (on any device) or array-like as a numpy array on the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

@@ -67,6 +67,39 @@ class Grid2D:
         col = _axis(self, "y", dtype, resolve_device(device))
         return col[:, None].expand(self.shape)
 
+    # -- boundary masks (static numpy bool arrays) ------------------------
+    @cached_property
+    def mask_left(self) -> np.ndarray:
+        m = np.zeros(self.shape, dtype=bool)
+        m[:, 0] = True
+        return m
+
+    @cached_property
+    def mask_right(self) -> np.ndarray:
+        m = np.zeros(self.shape, dtype=bool)
+        m[:, -1] = True
+        return m
+
+    @cached_property
+    def mask_bottom(self) -> np.ndarray:
+        m = np.zeros(self.shape, dtype=bool)
+        m[0, :] = True
+        return m
+
+    @cached_property
+    def mask_top(self) -> np.ndarray:
+        m = np.zeros(self.shape, dtype=bool)
+        m[-1, :] = True
+        return m
+
+    @cached_property
+    def mask_boundary(self) -> np.ndarray:
+        return self.mask_left | self.mask_right | self.mask_top | self.mask_bottom
+
+    @cached_property
+    def mask_interior(self) -> np.ndarray:
+        return ~self.mask_boundary
+
 
 @lru_cache(maxsize=64)
 def _axis(grid: Grid2D, name: str, dtype: torch.dtype, device: torch.device):
