@@ -141,6 +141,39 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   within 1e-3 of the exact series, u_min in (-1, 0), the
                   droplet checkpoint re-loaded with its config checked, and
                   ``droplet_jvp`` and ``sh_operator`` launched.
+26. dist_sh2048 — the distribution layer under one NCCL process group of
+                  world size 1 (the machine's one card): ``make_sharded_sh_step``
+                  at the sh2048 configuration against the single-device
+                  ``make_cn_step`` for 3 steps, with explicit halos (the
+                  ``sh_operator`` kernel on the width-2-extended block) and
+                  with the all-gather of the implicit path: equal Newton
+                  counts, fields within 2e-6 (the CPU test's tolerance for
+                  the f32-inner solver), ``sh_operator`` launched, the
+                  ``CommStats`` counters; ``sharded_sh_operator`` and
+                  ``sharded_lap_periodic`` at 4096^2 f32 against their plain
+                  local bodies (1e-5 of max|plain|), with times.  No
+                  communication time: one rank exchanges nothing.
+27. dist_droplet1024 — ``make_sharded_ops(jvp_dtype="float32").step`` (the
+                  lifted JVP) on the prepared 1024^2 state against
+                  ``make_step(deviation_form=True, jvp_dtype="float32")`` at
+                  dt 1e-9 with the JAX test's solver (f_tol 1e-9), 3 PMA
+                  sub-steps, both with the f64 PMA sub-loop: both converged,
+                  equal Newton counts, u and q within rtol 1e-8 / atol 1e-11.
+28. dist_checkpoint — ``save_sharded`` / ``load_sharded`` of the card's 1024^2
+                  fields, as rank blocks and whole: bit-exact.
+29. large_scale_droplet — ``examples/large_scale_droplet.main`` at n = 2048,
+                  2 timed steps in kernel mode: converged, ``droplet_jvp``
+                  launched; step ms and Newton iterations.
+30. droplet_longrun — ``examples/droplet_longrun.main`` at n = 1024 from
+                  checkpoints seeded with the prepared state (the 20,000
+                  inflation sub-steps do not run; cut: 20 PMA sub-steps a
+                  step, not 400; dt0 5e-8): 6 steps in two chunks of 3
+                  against 3 steps and a fresh call that resumes from their
+                  checkpoint: the first chunk equal, the checkpoint
+                  bit-exact, the resumed steps at the same dts and attempts,
+                  u within 6 f_tol and q within 1e-3 of the mesh's motion
+                  (the checkpoint holds no extrapolation history, as the
+                  JAX package's holds none).
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -409,28 +442,16 @@ class Spans:
 
 
 def prepare_large(n: int, dev):
-    """The large-grid state preparation (the JAX package's
-    examples/large_scale_droplet.py::prepare) on the port."""
+    """The large-grid state preparation of the port's
+    ``examples/large_scale_droplet.prepare``, with its mesh step and min
+    Jacobian."""
     import torch
-    from iterative_solvers_tpu_torch.io import fixtures as fx
-    from iterative_solvers_tpu_torch.meshmove.pma import loop_pma
-    from iterative_solvers_tpu_torch.models import droplet as dp
+    from iterative_solvers_tpu_torch.examples import large_scale_droplet as ls
     from iterative_solvers_tpu_torch.ops import curvilinear
 
-    fix, _ = fx.load_golden_step()
-    big = fx.upsample(fix, n, n)
-    cfg = dataclasses.replace(fx.config_for(big), spectral_dtype="float32",
-                              mesh_dtype="float32")
-    dtmesh = 1e-10 * min(1.0, (1024.0 / n) ** 2)
-    phi = curvilinear.to_deviation(torch.tensor(big.q, device=dev), cfg.grid)
-    for _ in range(3):
-        geom = curvilinear.mesh_geometry_dev(phi, cfg.grid)
-        u = dp.seeded_solution(geom, cfg, DROPS)
-        phi = loop_pma(phi, u, dtmesh, 60, cfg.grid, cfg.pma,
-                       dp.monitor_source, curvilinear.mesh_geometry_dev)
+    cfg, u, phi = ls.prepare(n, dev)
     geom = curvilinear.mesh_geometry_dev(phi, cfg.grid)
-    u = dp.seeded_solution(geom, cfg, DROPS)
-    return cfg, u, phi, dtmesh, float(torch.min(geom.jac))
+    return cfg, u, phi, ls.mesh_dt(n), float(torch.min(geom.jac))
 
 
 def synthetic_jvp_inputs(ny: int, nx: int, dev, seed: int = 7):
@@ -1777,6 +1798,283 @@ def cli_phase(dev, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# -- the distribution layer and the large-grid drivers -------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_sh2048(dev, mesh) -> dict:
+    """Phase 26: the sharded SH step on one NCCL rank against the
+    single-device step, in both halo modes; the two sharded operators at
+    4096^2 f32 against their plain local bodies.  Returns the stencil
+    kernels' launches of the phase."""
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.dist import comm
+    from iterative_solvers_tpu_torch.dist import halo
+    from iterative_solvers_tpu_torch.dist.solvers import make_sharded_sh_step
+    from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
+    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.utils.roofline import comm_stats
+
+    n, steps = SH_N, 3
+    cfg = sh.SHConfig(n=n, d=40.0 * n / 64)
+    solver = sh.fast_solver(cfg, f_tol=6e-6, inner_m=10, outer_k=5)
+    u0 = torch.tensor(np.random.default_rng(1).standard_normal((n, n)), device=dev)
+
+    def run(step, u):
+        out, ms = [], []
+        for _ in range(steps):
+            (u, res), secs = timed(lambda: step(u))
+            out.append((u, res.iters, res.converged, res.f_norm))
+            ms.append(secs * 1e3)
+        return out, ms
+
+    ref, ref_ms = run(sh.make_cn_step(cfg, solver, device=dev), u0)
+    check(all(r[2] for r in ref), "dist_sh2048: the single-device steps did not converge")
+    modes, launches = {}, {"sh_operator": 0, "lap_periodic": 0}
+    for explicit in (True, False):
+        step = make_sharded_sh_step(cfg, mesh, solver=solver, explicit_halos=explicit)
+        comm.reset_counts()
+        ps.reset_launches()
+        got, ms = run(step, halo.shard_field(u0, mesh))
+        stats = comm_stats()
+        launched = ps.sh_operator_kernel.launches
+        launches["sh_operator"] += launched
+        errs = [float((g[0] - r[0]).abs().max()) for g, r in zip(got, ref)]
+        label = "explicit" if explicit else "implicit"
+        check([g[1] for g in got] == [r[1] for r in ref],
+              f"dist_sh2048 {label}: Newton counts {[g[1] for g in got]} vs "
+              f"{[r[1] for r in ref]}")
+        check(all(g[2] for g in got), f"dist_sh2048 {label}: a step did not converge")
+        # the CPU test's tolerance for the f32-inner fast solver
+        check(max(errs) <= 2e-6, f"dist_sh2048 {label}: fields off by {errs}")
+        check(launched > 0, f"dist_sh2048 {label}: sh_operator not launched")
+        modes[label] = {"step_ms": ms, "newton_iters": [g[1] for g in got],
+                        "f_norm": [g[3] for g in got], "max_abs_err": errs,
+                        "sh_operator_launches": launched,
+                        "comm_stats": dataclasses.asdict(stats)}
+
+    # the sharded operators at the stencil bench's 4096^2 f32 against their
+    # plain local bodies: the 5-point core composition on the extended block
+    u = torch.tensor(np.random.default_rng(0).standard_normal((4096, 4096)),
+                     dtype=torch.float32, device=dev)
+    h, r = 40.0 / 4096, 0.01
+    inv_h2 = 1.0 / (h * h)
+
+    def plain_lap(v):
+        return halo._lap_core(halo.with_halo(v, 1, mesh), inv_h2)
+
+    def plain_sh(v):
+        ext = halo.with_halo(v, 2, mesh)
+        lap1 = halo._lap_core(ext, inv_h2)
+        return -halo._lap_core(lap1, inv_h2) - 2.0 * lap1[1:-1, 1:-1] + (r - 1.0) * v
+
+    ops = {"sharded_lap_periodic": (lambda v: halo.sharded_lap_periodic(v, h, mesh),
+                                    plain_lap, "lap_periodic"),
+           "sharded_sh_operator": (lambda v: halo.sharded_sh_operator(v, h, r, mesh),
+                                   plain_sh, "sh_operator")}
+    rows = {}
+    for name, (kernel, plain, kname) in ops.items():
+        ps.reset_launches()
+        got, want = kernel(u), plain(u)
+        torch.cuda.synchronize()
+        launched = getattr(ps, f"{kname}_kernel").launches
+        launches[kname] += launched
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-5 * scale, f"{name}: max err {err} > 1e-5 x {scale}")
+        check(launched == 1, f"{name}: {kname} launched {launched} times")
+        rows[name] = {"max_abs_err": err, "scale": scale, "ms": cuda_ms(lambda: kernel(u)),
+                      "plain_ms": cuda_ms(lambda: plain(u)),
+                      "kernel_alone_ms": cuda_ms(
+                          lambda: getattr(ps, f"{kname}_kernel")(u, h, r)
+                          if kname == "sh_operator" else ps.lap_periodic_kernel(u, h))}
+    emit({"phase": "dist_sh2048", "world_size": 1, "backend": "nccl", "n": n,
+          "steps": steps, "single_device": {"step_ms": ref_ms,
+                                            "newton_iters": [r[1] for r in ref]},
+          **modes, "operators_4096_f32": rows, "launches": launches})
+    return launches
+
+
+def dist_droplet1024(dev, prepared) -> None:
+    """Phase 27: the sharded droplet step with the lifted f32 JVP on one
+    NCCL rank (rows mesh of 1) against ``make_step(deviation_form=True,
+    jvp_dtype="float32")`` on the prepared 1024^2 state."""
+    import torch
+    from iterative_solvers_tpu_torch.dist import comm
+    from iterative_solvers_tpu_torch.dist import mesh as dmesh
+    from iterative_solvers_tpu_torch.dist.droplet import make_sharded_ops
+    from iterative_solvers_tpu_torch.models import droplet as dp
+    from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
+    from iterative_solvers_tpu_torch.utils.roofline import comm_stats
+
+    cfg_l, u, phi, dtmesh = prepared
+    # the sharded PMA loop runs in the state dtype, as the JAX package's
+    # does: compare both sides with the f64 sub-loop
+    cfg = dataclasses.replace(cfg_l, mesh_dtype=None)
+    loops = 3
+    # the JAX test's solver (f_tol 1e-9); at dt 1e-9, where it converges on
+    # this grid: at 5e-8 both sides stall near f_norm 2.9e-6 after 10
+    # iterations, the f32 JVP's limit there
+    solver = NewtonKrylov(f_tol=1e-9, maxiter=10, inner_m=10, outer_k=5,
+                          inner_dtype="float32")
+    mesh = dmesh.make_mesh((1,), ("y",), device="cuda")
+    ops = make_sharded_ops(cfg, mesh, solver=solver, jvp_dtype="float32")
+    comm.reset_counts()
+    got, secs = timed(lambda: ops.step(u, phi, DT, dtmesh, loops))
+    stats = comm_stats()
+    step = dp.make_step(cfg, dt=DT, dtmesh=dtmesh, pma_loops=loops, solver=solver,
+                        deviation_form=True, jvp_dtype="float32", device=dev)
+    want, secs_ref = timed(lambda: step(u, phi, DT))
+    du, dq = (got.u - want.u).abs(), (got.q - want.q).abs()
+    ok_u = bool((du <= 1e-11 + 1e-8 * want.u.abs()).all())
+    ok_q = bool((dq <= 1e-11 + 1e-8 * want.q.abs()).all())
+    emit({"phase": "dist_droplet1024", "world_size": 1, "backend": "nccl", "n": N,
+          "dt": DT, "pma_loops": loops, "mesh_dtype": None,
+          "newton_iters": [got.newton_iters, want.newton_iters],
+          "converged": [got.converged, want.converged],
+          "f_norm": [got.f_norm, want.f_norm], "max_abs_du": float(du.max()),
+          "max_abs_dq": float(dq.max()), "seconds": [secs, secs_ref],
+          "comm_stats": dataclasses.asdict(stats)})
+    check(got.converged and want.converged, "dist_droplet1024: a step did not converge")
+    check(got.newton_iters == want.newton_iters,
+          f"dist_droplet1024: Newton counts {got.newton_iters} vs {want.newton_iters}")
+    check(ok_u and ok_q, "dist_droplet1024: u or q off the single-device step "
+          "beyond rtol 1e-8 / atol 1e-11")
+
+
+def dist_checkpoint(dev, mesh, prepared, tmp: pathlib.Path) -> None:
+    """Phase 28: ``save_sharded`` then ``load_sharded`` of card tensors,
+    sharded (the mesh's rank block) and whole (as the long-run driver
+    saves), bit-exact."""
+    import torch
+    from iterative_solvers_tpu_torch.dist import halo
+    from iterative_solvers_tpu_torch.io import checkpoint as ck
+
+    cfg, u, phi, _ = prepared
+    sh = halo.grid_sharding(mesh)
+    (_, secs_save) = timed(lambda: ck.save_sharded(
+        tmp / "sharded", {"u": u, "q": phi}, config=cfg, step=4, time=1e-7,
+        shardings={"u": sh, "q": sh}))
+    (out, meta), secs_load = timed(lambda: ck.load_sharded(
+        tmp / "sharded", {"u": sh, "q": sh}, config=cfg))
+    ck.save_sharded(tmp / "whole", {"u": u}, config=cfg)
+    whole, _ = ck.load_sharded(tmp / "whole", {"u": dev}, config=cfg)
+    exact = (torch.equal(out["u"], u) and torch.equal(out["q"], phi)
+             and torch.equal(whole["u"], u) and out["u"].device == u.device)
+    emit({"phase": "dist_checkpoint", "shape": list(u.shape), "bit_exact": exact,
+          "layout": meta["layout"], "save_s": secs_save, "load_s": secs_load})
+    check(exact, "dist_checkpoint: the restored fields differ from the saved ones")
+    check(meta["step"] == 4 and meta["layout"]["u"]["spec"] == "PartitionSpec('y', 'x')",
+          f"dist_checkpoint: metadata {meta}")
+
+
+def large_scale_phase(dev) -> int:
+    """Phase 29: ``examples/large_scale_droplet.main`` at n = 2048, 2 timed
+    steps in kernel mode.  Returns its droplet_jvp launches."""
+    import contextlib
+    import io
+
+    from iterative_solvers_tpu_torch.examples import large_scale_droplet as ls
+    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+
+    jvp_matvec.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line, secs = timed(lambda: ls.main(["2048", "2", "kernel", str(dev)]))
+    launches = jvp_matvec.launches
+    emit({"phase": "large_scale_droplet", **line, "droplet_jvp_launches": launches,
+          "seconds": secs, "log": buf.getvalue().splitlines()[:-1]})
+    check(line["converged"] and line["f_norm"] <= 1e-5,
+          f"large_scale_droplet: {line}")
+    check(launches > 0, "large_scale_droplet launched no droplet_jvp kernel")
+    return launches
+
+
+def longrun_phase(dev, prepared, tmp: pathlib.Path) -> int:
+    """Phase 30: ``examples/droplet_longrun.main`` at n = 1024 from
+    checkpoints seeded with the prepared state: two chunks of 3 steps in one
+    call, against one chunk and a fresh call that resumes from its
+    checkpoint.  Returns the droplet_jvp launches."""
+    import contextlib
+    import io
+
+    import torch
+    from iterative_solvers_tpu_torch.examples import droplet_longrun as lr
+    from iterative_solvers_tpu_torch.io import checkpoint as ck
+    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+
+    _, u, phi, _ = prepared
+    # cut: 20 PMA sub-steps a step, not the driver's 400 at 1024^2; dt0 is
+    # where the controller is after ~20 steps, so that Newton iterates
+    opts = {"pma_loops": "20", "dt0": str(DT_MAIN), "chunk": "3"}
+    cfg = lr.longrun_config(N, opts)
+    for tag in ("full", "parts"):
+        lr.save_chunk(tmp / f"longrun_{tag}_ckpt", cfg, u, phi, 0, 0.0, DT_MAIN)
+    common = [f"{k}={v}" for k, v in opts.items()] + [f"out_dir={tmp}", f"device={dev}"]
+    jvp_matvec.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        full, secs_full = timed(lambda: lr.main([str(N), "6", "tag=full", *common]))
+        first, secs_first = timed(lambda: lr.main([str(N), "3", "tag=parts", *common]))
+        back, _ = ck.load_sharded(tmp / "longrun_parts_ckpt", {"u": dev, "q": dev},
+                                  config=cfg)
+        rest, secs_rest = timed(lambda: lr.main([str(N), "6", "tag=parts", *common]))
+    launches = jvp_matvec.launches
+    resumed = rest["records"]
+    du = float((rest["u"] - full["u"]).abs().max())
+    dq = float((rest["q"] - full["q"]).abs().max())
+    moved = float((full["q"] - first["q"]).abs().max())
+    f_tol = 1e-5
+
+    def brief(recs):
+        return [{k: r[k] for k in ("step", "dt", "attempts", "newton_iters", "f_norm",
+                                   "converged", "r_eff")} for r in recs]
+
+    emit({"phase": "droplet_longrun", "n": N, "cut": {"pma_loops": [20, 400]},
+          "dt0": DT_MAIN, "chunk": 3, "uninterrupted": brief(full["records"]),
+          "resumed": brief(resumed), "seconds": [secs_full, secs_first, secs_rest],
+          "max_abs_du": du, "max_abs_dq": dq, "q_moved": moved,
+          "droplet_jvp_launches": launches})
+    check(full["records"][:3] == first["records"],
+          "droplet_longrun: the first chunk differs between the two runs")
+    check(torch.equal(back["u"], first["u"]) and torch.equal(back["q"], first["q"]),
+          "droplet_longrun: the chunk's checkpoint is not bit-exact")
+    check([r["step"] for r in resumed] == [4, 5, 6], "droplet_longrun: resumed steps")
+    check(all(a["dt"] == b["dt"] and a["attempts"] == b["attempts"] and b["converged"]
+              for a, b in zip(full["records"][3:], resumed)),
+          "droplet_longrun: the resumed steps took other dts or attempts")
+    # the resumed first step starts Newton from u (the checkpoint holds no
+    # extrapolation history): two solutions within f_tol of the same step
+    check(du <= 3 * 2 * f_tol and dq <= 1e-3 * moved,
+          f"droplet_longrun: resumed run off by du {du}, dq {dq} (q moved {moved})")
+    return launches
+
+
+def dist_phases(dev, prepared, tmp: pathlib.Path) -> dict:
+    """Phases 26-30 under one NCCL process group of world size 1 (the
+    machine has one card: NCCL puts one rank on a GPU)."""
+    import torch.distributed as dist
+    from iterative_solvers_tpu_torch.dist import mesh as dmesh
+
+    dmesh.initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cuda",
+                               timeout=300)
+    try:
+        mesh = dmesh.make_mesh(device="cuda")
+        stencil = dist_sh2048(dev, mesh)
+        dist_droplet1024(dev, prepared)
+        dist_checkpoint(dev, mesh, prepared, tmp)
+    finally:
+        dist.destroy_process_group()
+    return {"dist_sh2048": stencil, "large_scale_droplet": large_scale_phase(dev),
+            "droplet_longrun": longrun_phase(dev, prepared, tmp)}
+
+
 def main() -> int:
     import torch
 
@@ -1828,6 +2126,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = cli_phase(dev, pathlib.Path(tmp))
 
+    # -- 26-30. the distribution layer and the large-grid drivers -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_launches = dist_phases(dev, prepared, pathlib.Path(tmp))
+    new_jvp = {k: dist_launches[k] for k in ("large_scale_droplet", "droplet_longrun")}
+    new_stencil = dist_launches["dist_sh2048"]
+
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -1873,21 +2177,26 @@ def main() -> int:
         {"name": "droplet_jvp", "route": "cuda",
          "source": "iterative_solvers_tpu_torch/ops/csrc/droplet_jvp.cu",
          "replaces": "iterative_solvers_tpu/ops/pallas_droplet.py:534",
-         "launches": launches_main + launches_evolve + cli_launches["droplet_jvp"],
+         "launches": (launches_main + launches_evolve + cli_launches["droplet_jvp"]
+                      + sum(new_jvp.values())),
          "launches_by_phase": {"step1024": launches_main, "droplet_evolve": launches_evolve,
-                               "cli": cli_launches["droplet_jvp"]},
+                               "cli": cli_launches["droplet_jvp"], **new_jvp},
          "max_abs_err": big["max_abs_err"],
          "ms": big["ms"], "device_ms": big["device_ms"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": None,
          "streaming_2048": {k: stream[k] for k in numbers[:-1]}},
-        entry("lap_periodic", rows["lap_periodic", "4096x4096_f32"],
-              bench_launches["lap_periodic"]),
+        {**entry("lap_periodic", rows["lap_periodic", "4096x4096_f32"],
+                 bench_launches["lap_periodic"] + new_stencil["lap_periodic"]),
+         "launches_by_phase": {"stencil_bench": bench_launches["lap_periodic"],
+                               "dist_sh2048": new_stencil["lap_periodic"]}},
         {**entry("sh_operator", rows["sh_operator", f"{SH_N}x{SH_N}_f32"],
-                 sh_launches["f32"] + sh_launches["f64"] + cli_launches["sh_operator"]),
+                 sh_launches["f32"] + sh_launches["f64"] + cli_launches["sh_operator"]
+                 + new_stencil["sh_operator"]),
          "launches_by_dtype": sh_launches,
          "launches_by_phase": {"sh2048": sh_launches["f32"] + sh_launches["f64"],
-                               "cli": cli_launches["sh_operator"]},
+                               "cli": cli_launches["sh_operator"],
+                               "dist_sh2048": new_stencil["sh_operator"]},
          **{k: rows["sh_operator", f"{SH_N}x{SH_N}_f32"][k] for k in versus + ("path",)},
          "f64": {"launches": sh_launches["f64"], "shape": sh64["shape"],
                  **{k: sh64[k] for k in numbers + versus + ("path",)}},

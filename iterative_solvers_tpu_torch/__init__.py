@@ -19,12 +19,17 @@ layout and function names so each counterpart is easy to find:
 - ``models``   — the moving-mesh thin-film droplet step, Swift–Hohenberg,
                  the MEMS touchdown problem (operator-split and coupled),
                  the Poisson duct flow, the 1-D heat and the wave steppers
-- ``io``       — the golden fixture state, checkpoints, and conversion of
-                 JAX-side state
-- ``utils``    — byte and operation counts of the hot kernels, metrics,
-                 timers, offline rendering
+- ``dist``     — the distribution layer on ``torch.distributed``: process
+                 groups and the device mesh, halo exchange, the sharded
+                 stencils, Swift–Hohenberg and droplet steps
+- ``io``       — the golden fixture state, checkpoints (whole and sharded),
+                 and conversion of JAX-side state
+- ``utils``    — byte and operation counts of the hot kernels and of the
+                 collectives, metrics, timers, offline rendering
 - ``cli``      — ``python -m iterative_solvers_tpu_torch.cli
                  {sh,droplet,mems,poisson}``
+- ``examples`` — the large-grid droplet drivers
+                 (``python -m iterative_solvers_tpu_torch.examples.<name>``)
 
 It imports ``torch`` (and numpy/scipy) only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``; with no GPU present and no

@@ -10,8 +10,9 @@ Storage is one ``.npz`` on the host, written atomically through a temporary
 file and a rename, so an interrupted write never corrupts a restart point.
 Arrays may be tensors (on any device) or numpy arrays; they are written and
 read as numpy.  The files are the JAX package's format: either side loads
-the other's.  The sharded checkpoint (``save_sharded`` / ``load_sharded``)
-belongs to the distribution layer and is not here.
+the other's.  :func:`save_sharded` / :func:`load_sharded` keep a field
+sharded over the ranks of the distribution layer (``dist/``) as one file
+a rank, in the JAX package's directory format too.
 """
 from __future__ import annotations
 
@@ -59,10 +60,16 @@ def save(path: str | pathlib.Path, arrays: Mapping[str, Any],
     payload["__meta__"] = np.frombuffer(
         json.dumps(meta).encode(), dtype=np.uint8
     )
+    _atomic_write(path, "wb", lambda f: np.savez(f, **payload))
+
+
+def _atomic_write(path: pathlib.Path, mode: str, write) -> None:
+    """``write(f)`` into a temporary file beside ``path``, then rename it
+    over ``path``: an interrupted write leaves the old file whole."""
     fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".tmp")
     try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, **payload)
+        with os.fdopen(fd, mode) as f:
+            write(f)
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):
@@ -78,6 +85,11 @@ def load(path: str | pathlib.Path, config: Any = None):
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    _check_meta(path, meta, config)
+    return arrays, meta
+
+
+def _check_meta(path: pathlib.Path, meta: dict, config: Any) -> None:
     if meta.get("format_version") != FORMAT_VERSION:
         raise CheckpointMismatch(
             f"{path.name}: format {meta.get('format_version')} != {FORMAT_VERSION}"
@@ -94,7 +106,126 @@ def load(path: str | pathlib.Path, config: Any = None):
             raise CheckpointMismatch(
                 f"{path.name}: config mismatch {diffs}"
             )
-    return arrays, meta
+
+
+_META_FILE = "meta.json"
+
+
+def _index_key(index) -> str:
+    """Stable string key for a shard's global-slice index."""
+    return ";".join(f"{s.start or 0}:{s.stop}" for s in index)
+
+
+def _process():
+    """``(rank, world size)`` of this process (0 and 1 without a process
+    group)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def save_sharded(path: str | pathlib.Path, arrays: Mapping[str, Any],
+                 config: Any = None, step: int = 0, time: float = 0.0, *,
+                 shardings: Mapping[str, Any] | None = None) -> None:
+    """Multi-process checkpoint of sharded fields.
+
+    ``path`` is a directory: every rank writes ONLY its blocks to
+    ``proc{rank}.npz`` under the keys ``name|y0:y1;x0:x1`` (their global
+    slices; no rank ever holds a global field), and rank 0 writes
+    ``meta.json`` with the metadata checked on load: config, step/time,
+    each array's global shape, dtype and partition spec.  ``shardings``
+    maps a name to the :class:`..dist.halo.GridSharding` its array is a
+    block of; an array without one is whole (spec ``""``), as a host
+    array is in the JAX package.  Each file is written atomically
+    (temporary file, then rename); with several ranks the call returns
+    when every rank has written.
+    """
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rank, world = _process()
+    shardings = shardings or {}
+
+    payload: dict[str, np.ndarray] = {}
+    layout: dict[str, Any] = {}
+    for name, arr in arrays.items():
+        block = to_numpy(arr)
+        sh = shardings.get(name)
+        if sh is None:
+            shape = block.shape
+            idx = tuple(slice(0, s) for s in shape)
+            spec = ""
+        else:
+            shape = sh.global_shape(block.shape)
+            idx = sh.index(shape)
+            spec = sh.spec_str
+        payload[f"{name}|{_index_key(idx)}"] = block
+        layout[name] = {"shape": list(shape), "dtype": str(block.dtype), "spec": spec}
+
+    _atomic_write(path / f"proc{rank}.npz", "wb", lambda f: np.savez(f, **payload))
+    if rank == 0:
+        meta = {
+            "format_version": FORMAT_VERSION,
+            "step": int(step),
+            "time": float(time),
+            "config": _config_dict(config),
+            "layout": layout,
+            "num_processes": world,
+        }
+        _atomic_write(path / _META_FILE, "w", lambda f: json.dump(meta, f))
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def load_sharded(path: str | pathlib.Path, shardings: Mapping[str, Any],
+                 config: Any = None):
+    """Restore fields saved by :func:`save_sharded` (by either package).
+
+    ``shardings`` maps an array name to the :class:`..dist.halo.GridSharding`
+    of the block this rank takes (returned on the rank's device), or to a
+    device for the whole array there (the JAX package's
+    ``SingleDeviceSharding``).  Each rank reads only its own block, from
+    whichever ``proc*.npz`` holds it.  Config validation as in
+    :func:`load`; the stored partition spec is checked against the target's
+    so a layout change raises :class:`CheckpointMismatch` instead of
+    silently reshuffling, as does a block no file holds.  Returns
+    ``(arrays, meta)``.
+    """
+    import torch
+
+    path = pathlib.Path(path)
+    meta = json.loads((path / _META_FILE).read_text())
+    _check_meta(path, meta, config)
+
+    where: dict[str, pathlib.Path] = {}
+    for f in sorted(path.glob("proc*.npz")):
+        with np.load(f) as z:
+            for key in z.files:
+                where.setdefault(key, f)
+
+    out = {}
+    for name, target in shardings.items():
+        lay = meta["layout"][name]
+        shape = tuple(lay["shape"])
+        stored_spec = lay.get("spec", "")
+        sharded = hasattr(target, "spec_str")
+        spec = target.spec_str if sharded else ""
+        if stored_spec and spec != stored_spec:
+            raise CheckpointMismatch(
+                f"{name}: stored partition {stored_spec} != target {spec}")
+        idx = target.index(shape) if sharded else tuple(slice(0, s) for s in shape)
+        key = f"{name}|{_index_key(idx)}"
+        if key not in where:
+            raise CheckpointMismatch(
+                f"{name}: no stored chunk for block {_index_key(idx)} "
+                f"(saved on a different layout?)")
+        with np.load(where[key]) as z:
+            chunk = z[key].astype(lay["dtype"])
+        out[name] = torch.as_tensor(chunk, device=target.device if sharded else target)
+    return out, meta
 
 
 def export_reference_text(path, u, q) -> None:

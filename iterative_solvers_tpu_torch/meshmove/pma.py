@@ -99,13 +99,16 @@ def shifted_neumann_eig_bounds(grid: Grid2D, gamma: float):
 
 def solve_shifted_neumann(rhs, grid: Grid2D, params: PMAParams, *,
                           method: str = "chebyshev", tol: float = 1e-8,
-                          lap: Callable | None = None, maxiter: int = 2000):
+                          lap: Callable | None = None, maxiter: int = 2000,
+                          group=None):
     """Iteratively solve ``(I - gamma lap_neumann) x = rhs``.
 
     ``method="chebyshev"``: a Chebyshev iteration with the exact eigenvalue
     bounds and a count fixed from the convergence factor (no inner
     products, no host sync).  ``method="cg"``: conjugate gradients
-    (:func:`..solvers.cg.cg`).  ``lap`` overrides the Laplacian application.
+    (:func:`..solvers.cg.cg`).  ``lap`` overrides the Laplacian application;
+    with a sharded ``rhs`` block (``dist.droplet``) it is the halo-lifted
+    one and ``group`` sums CG's inner products over the ranks.
     """
     gamma = params.gamma
     lap_fn = lap if lap is not None else (lambda v: neumann_laplacian(v, grid))
@@ -117,7 +120,7 @@ def solve_shifted_neumann(rhs, grid: Grid2D, params: PMAParams, *,
     if method == "cg":
         from ..solvers.cg import cg
 
-        return cg(op, rhs, tol=tol, maxiter=maxiter).x
+        return cg(op, rhs, tol=tol, maxiter=maxiter, group=group).x
     if method != "chebyshev":
         raise ValueError(f"method must be 'chebyshev' or 'cg', got {method!r}")
 

@@ -66,21 +66,33 @@ def cn_residual(u, u_old, L_uold, cfg: SHConfig):
     return (u - u_old) / cfg.k - (rhs_new + rhs_old) / 2.0
 
 
-def jacobian_matvec_factory(cfg: SHConfig, inner_dtype: str | None = None):
+@dataclasses.dataclass(frozen=True)
+class JacobianMatvec:
     """Analytic Jacobian of the CN residual for ``NewtonKrylov.matvec_factory``:
-    ``J v = v/k - (L v + (2 g u - 3 u^2) v) / 2``, in the inner dtype."""
+    ``J v = v/k - (L v + (2 g u - 3 u^2) v) / 2``, in the inner dtype.
+    ``apply`` replaces :func:`apply_L` (``v -> L v``); the sharded step
+    (``dist.solvers``) sets it to the operator on a rank's block."""
 
-    def factory(x, fx):
+    cfg: SHConfig
+    inner_dtype: str | None = None
+    apply: object = None
+
+    def __call__(self, x, fx):
+        cfg = self.cfg
         coef = 2.0 * cfg.g * x - 3.0 * x * x
-        if inner_dtype is not None:
-            coef = coef.to(getattr(torch, inner_dtype))
+        if self.inner_dtype is not None:
+            coef = coef.to(getattr(torch, self.inner_dtype))
+        op = self.apply if self.apply is not None else (lambda v: apply_L(v, cfg))
 
         def mv(v):
-            return v / cfg.k - (apply_L(v, cfg) + coef * v) / 2.0
+            return v / cfg.k - (op(v) + coef * v) / 2.0
 
         return mv
 
-    return factory
+
+def jacobian_matvec_factory(cfg: SHConfig, inner_dtype: str | None = None):
+    """The :class:`JacobianMatvec` of ``cfg`` in ``inner_dtype``."""
+    return JacobianMatvec(cfg, inner_dtype)
 
 
 def fast_solver(cfg: SHConfig, f_tol: float = 6e-6, inner_m: int = 10,

@@ -74,13 +74,17 @@ def mesh_geometry(q, grid: Grid2D) -> MeshGeometry:
     return MeshGeometry(x=qx, y=qy, xx=qxx, yy=qyy, xy=qxy, jac=jac)
 
 
-def mesh_geometry_dev(phi, grid: Grid2D) -> MeshGeometry:
+def mesh_geometry_dev(phi, grid: Grid2D, coords=None) -> MeshGeometry:
     """Mesh geometry from the deviation potential ``Q = (x^2+y^2)/2 + phi``.
 
     Only the O(1) deviation is differenced (the identity part's derivatives
     are analytic: x, y, 1, 1, 0), so no stencil cancels ``Q/h^2``-sized
     terms — the f32-robust form for fine grids.  ``phi`` has homogeneous
     Neumann BCs, so the one-sided second-derivative corrections vanish.
+
+    ``coords=(xx, yy)`` replaces the grid's coordinate fields: the sharded
+    droplet path (``dist.droplet``) passes the blocks that match a
+    halo-extended ``phi`` block.
     """
     dx, dy = grid.dx, grid.dy
 
@@ -95,8 +99,11 @@ def mesh_geometry_dev(phi, grid: Grid2D) -> MeshGeometry:
     pyy = stencils.d2_y(phi, dy)
     pxy = _zero_edges(stencils.dxy(phi, dx, dy))
 
-    xx_id = grid.xx_op(phi.dtype, phi.device)
-    yy_id = grid.yy_op(phi.dtype, phi.device)
+    if coords is None:
+        xx_id = grid.xx_op(phi.dtype, phi.device)
+        yy_id = grid.yy_op(phi.dtype, phi.device)
+    else:
+        xx_id, yy_id = (c.to(phi.dtype) for c in coords)
     qxx = 1.0 + pxx
     qyy = 1.0 + pyy
     jac = qxx * qyy - pxy * pxy

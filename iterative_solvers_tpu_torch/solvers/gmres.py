@@ -8,6 +8,11 @@ package's chunked form of the same projection is a TPU memory-traffic
 device and is not carried).  The small Hessenberg/Givens recurrence lives
 on the host (numpy, in the Krylov dtype): its inputs come back with the
 one host sync per Arnoldi step that the convergence decision needs anyway.
+
+``group`` is the reduction of a field sharded over ranks
+(``dist/``): every inner product and norm is summed over that process
+group, so every rank takes the same host decisions; ``None`` (the
+default) is the single-device path.
 """
 from __future__ import annotations
 
@@ -17,22 +22,25 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..dist.comm import reduce_sum
 
-def _norm(a):
+
+def _norm(a, group=None):
     """Euclidean norm of a field, as a 0-d device tensor."""
     a = a.reshape(-1)
-    return torch.sqrt(torch.dot(a, a))
+    return torch.sqrt(reduce_sum(torch.dot(a, a), group))
 
 
-def _cgs2(V, w):
+def _cgs2(V, w, group=None):
     """CGS2 of ``w`` against the rows of ``V`` (``V`` holds exactly the live
     basis rows).  Returns ``(h, w_deflated)`` with ``h`` of length
-    ``V.shape[0]`` on the device."""
+    ``V.shape[0]`` on the device; with a ``group``, one all-reduce of each
+    round's projections."""
     Vf = V.reshape(V.shape[0], -1)
     wf = w.reshape(-1)
-    h = Vf @ wf
+    h = reduce_sum(Vf @ wf, group)
     wf = wf - h @ Vf
-    h2 = Vf @ wf
+    h2 = reduce_sum(Vf @ wf, group)
     wf = wf - h2 @ Vf
     return h + h2, wf.reshape(w.shape)
 
@@ -68,13 +76,13 @@ def _givens_step(h: np.ndarray, beta, cs: np.ndarray, sn: np.ndarray,
     return abs(g[j + 1])
 
 
-def _arnoldi_column(V, w, j: int, ndt):
+def _arnoldi_column(V, w, j: int, ndt, group=None):
     """CGS2 of ``w`` against the ``j + 1`` live rows of ``V``; stores the
     normalised remainder in ``V[j + 1]`` and returns the Hessenberg column
     (host, length ``V.shape[0]``) and its subdiagonal — the step's one
     host sync."""
-    h_dev, w = _cgs2(V[:j + 1], w)
-    hb = torch.cat([h_dev, _norm(w)[None]]).cpu().numpy()
+    h_dev, w = _cgs2(V[:j + 1], w, group)
+    hb = torch.cat([h_dev, _norm(w, group)[None]]).cpu().numpy()
     h = np.zeros(V.shape[0], dtype=ndt)
     h[:j + 1] = hb[:j + 1]
     beta = hb[j + 1]
@@ -90,7 +98,7 @@ class GmresResult(NamedTuple):
 
 
 def _gmres_cycle(matvec: Callable, precond: Callable, x0, r0, r0norm, tol_abs,
-                 restart: int):
+                 restart: int, group=None):
     """One restart cycle from residual ``r0`` (norm ``r0norm``, host).
     Returns ``(x_new, res_est, j)`` with host numbers."""
     ndt = _np_dtype(r0.dtype)
@@ -105,7 +113,7 @@ def _gmres_cycle(matvec: Callable, precond: Callable, x0, r0, r0norm, tol_abs,
 
     j, res = 0, ndt.type(r0norm)
     while j < m and res > tol_abs:
-        h, beta = _arnoldi_column(V, matvec(precond(V[j])), j, ndt)
+        h, beta = _arnoldi_column(V, matvec(precond(V[j])), j, ndt, group)
         res = _givens_step(h, beta, cs, sn, g, j)
         R[:, j] = h[:m]
         j += 1
@@ -122,13 +130,15 @@ def _gmres_cycle(matvec: Callable, precond: Callable, x0, r0, r0norm, tol_abs,
 
 def gmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
           restart: int = 30, maxiter: int | None = None,
-          M: Callable | None = None) -> GmresResult:
+          M: Callable | None = None, group=None) -> GmresResult:
     """Solve ``A x = b`` with right-preconditioned restarted GMRES.
 
     ``M``, if given, applies an approximate inverse of ``A`` (right
     preconditioning: the reported residual is the true one).  ``maxiter``
     bounds the inner (Arnoldi) iterations, checked between restarts.
-    Convergence: ``||b - A x|| <= max(tol ||b||, atol)``.
+    Convergence: ``||b - A x|| <= max(tol ||b||, atol)``.  ``b`` may be
+    a rank's block of a field sharded over ``group`` (each rank's
+    ``restart`` is then capped by its own block's size).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -137,17 +147,17 @@ def gmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     if maxiter is None:
         maxiter = 10 * restart
     ndt = _np_dtype(b.dtype)
-    tol_abs = ndt.type(max(tol * _norm(b).item(), atol))
+    tol_abs = ndt.type(max(tol * _norm(b, group).item(), atol))
 
     x, iters = x0, 0
     r = b - matvec(x)
-    res = ndt.type(_norm(r).item())
+    res = ndt.type(_norm(r, group).item())
     while res > tol_abs and iters < maxiter:
-        x, _, j = _gmres_cycle(matvec, precond, x, r, res, tol_abs, restart)
+        x, _, j = _gmres_cycle(matvec, precond, x, r, res, tol_abs, restart, group)
         iters += j
         # the Givens estimate can drift below the true residual (CGS2
         # roundoff): the outer loop and the report use the true residual
         r = b - matvec(x)
-        res = ndt.type(_norm(r).item())
+        res = ndt.type(_norm(r, group).item())
     return GmresResult(x=x, iters=iters, resnorm=float(res),
                        converged=bool(res <= tol_abs))

@@ -11,7 +11,9 @@ buffer carried across iterations and no cached ``A z``; :func:`lgmres` is
 the standalone solver, which caches ``A z`` (``store_av``) by default.
 
 The loop runs on the host; fields stay on the device.  Per Arnoldi step
-there is one host sync, for the convergence decision.
+there is one host sync, for the convergence decision.  ``group`` sums the
+inner products and norms over the ranks of a sharded field, as in
+:mod:`.gmres`.
 """
 from __future__ import annotations
 
@@ -56,11 +58,11 @@ def init_recycle(shape, outer_k: int, dtype, device="cuda",
                          az=torch.zeros_like(z) if store_av else None)
 
 
-def _push_recycle(rec: LgmresRecycle, dx, adx=None) -> LgmresRecycle:
+def _push_recycle(rec: LgmresRecycle, dx, adx=None, group=None) -> LgmresRecycle:
     """Append dx/||dx|| (and A dx/||dx|| when the buffer caches A z) to the
     buffer, evicting the oldest entry when full; a zero ``dx`` leaves the
     buffer as it is."""
-    nx = _np_dtype(dx.dtype).type(_norm(dx).item())
+    nx = _np_dtype(dx.dtype).type(_norm(dx, group).item())
     if not nx > 0:
         return rec
     scale = float(nx.dtype.type(1.0) / nx)
@@ -80,7 +82,7 @@ def _push_recycle(rec: LgmresRecycle, dx, adx=None) -> LgmresRecycle:
 
 
 def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
-                  inner_m: int, rec: LgmresRecycle):
+                  inner_m: int, rec: LgmresRecycle, group=None):
     """One augmented (inner_m + count) cycle from residual ``r`` with norm
     ``rnorm`` (host scalar).  Returns ``(x + dx, res_est, j, rec)`` with the
     Givens residual estimate and the step count as host numbers."""
@@ -114,7 +116,7 @@ def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
             z = precond(V[j])
             w = matvec(z)
         Z[j] = z
-        h, beta = _arnoldi_column(V, w, j, ndt)
+        h, beta = _arnoldi_column(V, w, j, ndt, group)
         res = _givens_step(h, beta, cs, sn, g, j)
         R[:, j] = h[:mtot]
         j += 1
@@ -127,7 +129,7 @@ def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
         y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
         y = torch.as_tensor(y.astype(ndt), device=r.device)
         dx = torch.tensordot(y, Z[:j], dims=1)
-    rec = _push_recycle(rec, dx, None if rec.az is None else matvec(dx))
+    rec = _push_recycle(rec, dx, None if rec.az is None else matvec(dx), group)
     return x + dx, res, j, rec
 
 
@@ -135,7 +137,7 @@ def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
            atol: float = 0.0, inner_m: int = 30, outer_k: int = 3,
            maxiter: int = 1000, M: Callable | None = None,
            recycle: LgmresRecycle | None = None,
-           store_av: bool = True) -> tuple[LgmresResult, LgmresRecycle]:
+           store_av: bool = True, group=None) -> tuple[LgmresResult, LgmresRecycle]:
     """Solve ``A x = b`` by LGMRES.  Returns ``(result, recycle buffer)``.
 
     ``maxiter`` counts outer cycles (scipy's convention).  Pass the
@@ -149,18 +151,18 @@ def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
     if recycle is None:
         recycle = init_recycle(b.shape, outer_k, b.dtype, b.device, store_av)
     ndt = _np_dtype(b.dtype)
-    tol_abs = ndt.type(max(tol * _norm(b).item(), atol))
+    tol_abs = ndt.type(max(tol * _norm(b, group).item(), atol))
 
     x, rec, iters, cycles = x0, recycle, 0, 0
     r = b - matvec(x)
-    res = ndt.type(_norm(r).item())
+    res = ndt.type(_norm(r, group).item())
     while res > tol_abs and cycles < maxiter:
         x, _, j, rec = _lgmres_cycle(matvec, precond, x, r, res, tol_abs,
-                                     inner_m, rec)
+                                     inner_m, rec, group)
         iters += j
         cycles += 1
         # gate the outer loop on the true residual (the Givens estimate drifts)
         r = b - matvec(x)
-        res = ndt.type(_norm(r).item())
+        res = ndt.type(_norm(r, group).item())
     return (LgmresResult(x=x, iters=iters, resnorm=float(res),
                          converged=bool(res <= tol_abs)), rec)

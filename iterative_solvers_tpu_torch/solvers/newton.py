@@ -18,21 +18,35 @@ The semantics of ``scipy.optimize.newton_krylov``:
 Newton, Armijo and LGMRES are host loops over device tensors; the host
 reads scalars only where the loop makes a convergence or breakdown
 decision, never inside a matvec.
+
+With ``group`` set, ``x`` is a rank's block of a field sharded over that
+process group (``dist/``): every norm and max-norm is reduced over it, so
+each Armijo, forcing, restart and convergence decision is taken on the
+same all-reduced scalars on every rank, and every rank calls the
+collectives in the same order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..dist.comm import all_reduce
 from .gmres import _norm, _np_dtype
 from .lgmres import _lgmres_cycle, init_recycle
 
 
-def _maxnorm(v):
-    return torch.max(torch.abs(v))
+def _maxnorm(v, group=None):
+    m = torch.max(torch.abs(v))
+    return m if group is None else all_reduce(m, group, "max")
+
+
+def _maxnorms(vs, group=None) -> list:
+    """Max-norms of the fields ``vs`` as host floats, in one all-reduce."""
+    m = torch.stack([torch.max(torch.abs(v)) for v in vs])
+    return (m if group is None else all_reduce(m, group, "max")).tolist()
 
 
 class NewtonResult(NamedTuple):
@@ -69,6 +83,8 @@ class NewtonKrylov:
     psolve_factory: Callable | None = None
     # ``psolve_factory(x, fx) -> (v -> M^{-1} v)``: flexible right
     # preconditioner of the inner cycle.
+    group: Any = None
+    # the process group a sharded ``x`` is reduced over; None: one device.
 
     def solve(self, residual: Callable, x0: torch.Tensor, *args) -> NewtonResult:
         """Solve ``residual(x, *args) = 0`` starting from ``x0``."""
@@ -89,13 +105,15 @@ class NewtonKrylov:
         def func(x):
             return residual(x, *args)
 
+        group = self.group
+
         def fd_matvec_at(x, f0):
             """scipy KrylovJacobian.matvec (FD directional derivative)."""
-            omega = (rdiff * torch.clamp_min(_maxnorm(x), 1.0)
-                     / torch.clamp_min(_maxnorm(f0), 1.0))
+            omega = (rdiff * torch.clamp_min(_maxnorm(x, group), 1.0)
+                     / torch.clamp_min(_maxnorm(f0, group), 1.0))
 
             def mv(v):
-                nv = _norm(v)
+                nv = _norm(v, group)
                 sc = omega / torch.where(nv > 0, nv, torch.ones_like(nv))
                 return torch.where(nv > 0, (func(x + sc * v) - f0) / sc,
                                    torch.zeros_like(v))
@@ -111,18 +129,18 @@ class NewtonKrylov:
             t = 1e-4
             s, k = 1.0, 0
             fx = func(x + dx)
-            phi = _norm(fx).item() ** 2
+            phi = _norm(fx, group).item() ** 2
             while phi > (1 - t * s) ** 2 * f0_sqnorm and k < self.max_backtracks:
                 s *= 0.5
                 fx = func(x + s * dx)
-                phi = _norm(fx).item() ** 2
+                phi = _norm(fx, group).item() ** 2
                 k += 1
             return s, fx, k + 1
 
         gamma, eta_max, eta_threshold = 0.9, 0.9999, 0.1
         x = x0
         fx = func(x0)
-        f_norm = _maxnorm(fx).item()
+        f_norm = _maxnorm(fx, group).item()
         f0_norm = f_norm
         done = f_norm <= f_tol
         eta = 1e-3
@@ -142,29 +160,28 @@ class NewtonKrylov:
             ps = (self.psolve_factory(x, fx) if self.psolve_factory
                   is not None else (lambda v: v))
             ndt = _np_dtype(kdt)
-            rnorm = ndt.type(_norm(rhs).item())
+            rnorm = ndt.type(_norm(rhs, group).item())
             tol_inner = ndt.type(min(eta, eta * float(rnorm)) * float(rnorm))
             dx, _, inner_j, rec = _lgmres_cycle(
                 mv, ps, torch.zeros_like(rhs), rhs, rnorm, tol_inner,
-                self.inner_m, rec)
+                self.inner_m, rec, group)
             for _ in range(self.inner_maxiter - 1):
                 # restart on the true linear residual, recycle buffer kept
                 r = rhs - mv(dx)
-                rn = ndt.type(_norm(r).item())
+                rn = ndt.type(_norm(r, group).item())
                 if not rn > tol_inner:
                     break
                 dx, _, jstep, rec = _lgmres_cycle(
-                    mv, ps, dx, r, rn, tol_inner, self.inner_m, rec)
+                    mv, ps, dx, r, rn, tol_inner, self.inner_m, rec, group)
                 inner_j += jstep
             dx = dx.to(dtype)
 
             if self.line_search:
-                s, fx_new, ls_evals = armijo(x, dx, _norm(fx).item() ** 2)
+                s, fx_new, ls_evals = armijo(x, dx, _norm(fx, group).item() ** 2)
             else:
                 s, fx_new, ls_evals = 1.0, func(x + dx), 1
             x_new = x + s * dx
-            f_norm_new, dx_norm, x_norm = torch.stack(
-                [_maxnorm(fx_new), _maxnorm(s * dx), _maxnorm(x_new)]).tolist()
+            f_norm_new, dx_norm, x_norm = _maxnorms([fx_new, s * dx, x_new], group)
 
             # Eisenstat–Walker forcing-term schedule (scipy _nonlin.py)
             eta_a = gamma * (f_norm_new / max(f_norm, 1e-300)) ** 2

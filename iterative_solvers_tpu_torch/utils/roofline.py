@@ -4,8 +4,9 @@
 Stencil application and SpMV are bound by device-memory traffic; these
 helpers count the bytes each call must move (every input read once, every
 output written once) and its operations, and turn a measured time into an
-achieved rate.  They hold no hardware table: the caller divides by the
-rate of the card it measured on.
+achieved rate.  :class:`CommStats` and the halo models count the
+distribution layer's traffic.  They hold no hardware table: the caller
+divides by the rate of the card it measured on.
 """
 from __future__ import annotations
 
@@ -85,3 +86,93 @@ def spmv_kernel_cost(terms, ny: int, nx: int, dtype_bytes: int,
     coeffs = coefficients_read(terms, ny, nx, cyclic)
     return KernelCost(bytes_moved=(coeffs + 2 * nrhs * n) * dtype_bytes,
                       flops=2 * coeffs * nrhs)
+
+
+# -- communication accounting --------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CommStats:
+    """Collective traffic of a run, counted by the distribution layer's
+    collectives (``dist/comm.py``).
+
+    Byte counts are PER RANK: what each rank receives for its halo strips,
+    and the gathered result of its all-gathers.  The JAX package reads the
+    same fields from the compiled program's text
+    (``comm_stats_from_compiled``), which has no counterpart here."""
+
+    collective_permute_count: int
+    all_reduce_count: int
+    all_gather_count: int
+    reduce_scatter_count: int
+    permute_bytes: int        # sum of the halo strips received
+    all_gather_bytes: int
+
+    @property
+    def total_comm_bytes(self) -> int:
+        return self.permute_bytes + self.all_gather_bytes
+
+
+def comm_stats(counts=None) -> CommStats:
+    """A :class:`CommStats` from the counters of ``dist/comm.py`` (default:
+    its module counters ``COUNTS``) since their last reset."""
+    from ..dist import comm
+
+    c = comm.COUNTS if counts is None else counts
+    return CommStats(collective_permute_count=c.permutes,
+                     all_reduce_count=c.all_reduces,
+                     all_gather_count=c.all_gathers, reduce_scatter_count=0,
+                     permute_bytes=c.permute_bytes,
+                     all_gather_bytes=c.all_gather_bytes)
+
+
+def halo_step_model(ny: int, nx: int, n_devices: int, halo_rows: int,
+                    exchanges_per_step: int, dtype_bytes: int,
+                    compute_passes: int, hbm_gbps: float,
+                    link_gbps: float) -> dict:
+    """Analytic comm/compute model of a row-sharded stencil step.
+
+    Per device and step: compute touches ``compute_passes`` full passes over
+    its ``(ny/n_devices, nx)`` block; communication moves ``halo_rows x nx``
+    strips to each of two neighbours, ``exchanges_per_step`` times.  Returns
+    bytes, the comm/compute ratio, and the projected weak-scaling
+    efficiency  eff = t_compute / (t_compute + t_comm).  ``hbm_gbps`` and
+    ``link_gbps`` are the memory and neighbour-link rates (GB/s) of the
+    card the caller models: no table of them is kept here."""
+    block_rows = ny // n_devices
+    compute_bytes = compute_passes * 2 * block_rows * nx * dtype_bytes
+    comm_bytes = exchanges_per_step * 2 * halo_rows * nx * dtype_bytes
+    t_compute = compute_bytes / (hbm_gbps * 1e9)
+    t_comm = comm_bytes / (link_gbps * 1e9)
+    return {
+        "block_rows": block_rows,
+        "compute_bytes": compute_bytes,
+        "comm_bytes": comm_bytes,
+        "comm_compute_ratio": comm_bytes * hbm_gbps / (compute_bytes * link_gbps),
+        "weak_scaling_efficiency": t_compute / (t_compute + t_comm),
+    }
+
+
+def halo_step_model_2d(ny: int, nx: int, py: int, px: int, halo: int,
+                       exchanges_per_step: int, dtype_bytes: int,
+                       compute_passes: int, hbm_gbps: float,
+                       link_gbps: float) -> dict:
+    """Analytic comm/compute model of a 2-D block-sharded stencil step
+    (``dist.halo.sharded_xy_chain``): per device each exchange moves
+    ``halo``-deep strips along the block perimeter (2 row strips + 2 column
+    strips + 4 corners via the two-hop y-then-x scheme, so the column strips
+    are halo-extended: bm + 2*halo rows).  Rates as in
+    :func:`halo_step_model`."""
+    bm, bn = ny // py, nx // px
+    compute_bytes = compute_passes * 2 * bm * bn * dtype_bytes
+    per_exchange = (2 * halo * bn + 2 * halo * (bm + 2 * halo)) * dtype_bytes
+    comm_bytes = exchanges_per_step * per_exchange
+    t_compute = compute_bytes / (hbm_gbps * 1e9)
+    t_comm = comm_bytes / (link_gbps * 1e9)
+    return {
+        "block": (bm, bn),
+        "compute_bytes": compute_bytes,
+        "comm_bytes": comm_bytes,
+        "comm_compute_ratio": comm_bytes * hbm_gbps / (compute_bytes * link_gbps),
+        "weak_scaling_efficiency": t_compute / (t_compute + t_comm),
+    }
