@@ -174,6 +174,43 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   u within 6 f_tol and q within 1e-3 of the mesh's motion
                   (the checkpoint holds no extrapolation history, as the
                   JAX package's holds none).
+31. sh_full_experiment — ``examples/sh_full_experiment.experiment`` for 250
+                  steps (of 2500) at 64^2: every step converged, worst
+                  f_norm <= 6e-6, ms a step, ``sh_operator`` launches by dtype.
+32. mems_touchdown_example — ``examples/mems_touchdown.main`` in chunks of
+                  ``TOUCHDOWN_CHUNK`` (of 500) for at most 3 chunks, with
+                  ``u_stop`` at phase 22's u_min one step before the second
+                  chunk's end: it stops at that chunk's end; every row within
+                  ``TOUCHDOWN_GATE_*`` of phase 22's run of the same step
+                  (which holds the trajectory to the record), row 1 of the
+                  record's; the record (summary, thinned rows) written under
+                  the run's ``out_dir`` and nothing else.
+33. mems_bdf_touchdown_example — ``examples/mems_bdf_touchdown.main`` to tf =
+                  0.05 in 2 segments (of 0.25 in 10): the t = 0.025 row at
+                  the ``mems_bdf`` gates with the record's 34 / 4 counts, the
+                  t = 0.05 row within the record's own
+                  ``max_abs_diff_vs_split`` of the split curve.
+34. flagship_91x61 — ``examples/droplet_flagship.evolve`` at 91x61 for 3
+                  steps (of 1000) from phase 18's inflation, which is the
+                  driver's own: Newton counts equal to the record's rows
+                  1-3, dt, R_eff and the min spacing within
+                  ``FLAGSHIP_GATE_*``.
+35. flagship_1024 — ``examples/droplet_flagship`` at 1024^2: a cut inflation
+                  (``FLAGSHIP_VSTEPS`` volume steps), ``FLAGSHIP_STEPS`` steps
+                  of ``FLAGSHIP_PMA`` PMA sub-steps (the mesh step the
+                  driver's) in chunks of ``FLAGSHIP_CHUNK`` with the
+                  sharded-checkpoint splice after the middle chunk
+                  (bit-exact on the host),
+                  every step converged, ``droplet_jvp`` launched (by the
+                  steps after the splice: the first ones take no Newton
+                  iteration, see ``FLAGSHIP_STEPS``).
+36. native      — ``iterative_solvers_tpu_torch.native`` at n = 64 on the card:
+                  ``spmv_csr`` on the SH operator against scipy (1e-12 of
+                  scale), ``lgmres_csr`` on I - 0.05 L against ``spsolve``
+                  (1e-8), ``nonlin_solve`` against ``newton_krylov`` (1e-6),
+                  3 ``sh_evolve`` steps against the CPU (1e-8, equal
+                  converged counts), the module driver (``converged=5``);
+                  ``sh_operator`` launches.
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -1486,9 +1523,10 @@ def residual_pair(dp, cfg, u, q, geometry_fn, dt, dev) -> dict:
             "df64_ms": cuda_ms(lambda: rdf(x, dt), reps=5, batch=3, warmup=1)}
 
 
-def droplet_driver_phases(dev, prepared) -> int:
+def droplet_driver_phases(dev, prepared) -> tuple:
     """Phases 17-19: the droplet drivers and the port's headline bench.
-    Returns the droplet_jvp launches of the two ``evolve`` runs."""
+    Returns the droplet_jvp launches of the two ``evolve`` runs and the
+    inflated coalescence state ``(q, u)`` of phase 18."""
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch import bench
@@ -1574,7 +1612,7 @@ def droplet_driver_phases(dev, prepared) -> int:
     check(line["worst_f_norm"] <= 1e-7 and np.isfinite(line["value"]) and line["value"] > 0,
           f"bench91: {line}")
     emit({"phase": "bench91", **line})
-    return launches
+    return launches, (q, u)
 
 
 # -- the MEMS workload and the CLI ----------------------------------------------------
@@ -1588,10 +1626,12 @@ TOUCHDOWN_STEPS = 81            # rows 1, 21, 41, 61, 81 of the JAX record
 # and stay 10x inside the JAX run's own 1.2e-9 against the reference loop
 TOUCHDOWN_GATE_UMIN = 1e-10
 TOUCHDOWN_GATE_DT = 1e-10
+TOUCHDOWN_CHUNK = 3             # phase 32's chunk of steps, of the driver's 500
 
 
-def mems_phases(dev) -> None:
-    """Phases 20-24: the MEMS workload at the reference's N = 51 in f64."""
+def mems_phases(dev) -> list:
+    """Phases 20-24: the MEMS workload at the reference's N = 51 in f64.
+    Returns the touchdown run's steps (t, dt, u_min, ...) for phase 32."""
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch.io import fixtures as fx
@@ -1664,12 +1704,12 @@ def mems_phases(dev) -> None:
         out, secs = timed(lambda: step(u, q))
         u, q, t = out.u, out.q, t + out.dt
         recs.append({"ms": secs * 1e3, "newton_iters": out.newton_iters,
-                     "converged": out.converged})
+                     "converged": out.converged, "u_min": float(torch.min(u)),
+                     "dt": out.dt, "t": t})
         if s in record:
             row = record[s]
-            recs[-1].update(u_min=float(torch.min(u)), dt=out.dt, t=t,
-                            min_spacing=float(min_spacing(
-                                curvilinear.mesh_geometry(q, cfg.grid))))
+            recs[-1]["min_spacing"] = float(min_spacing(
+                curvilinear.mesh_geometry(q, cfg.grid)))
             worst["u_min"] = max(worst["u_min"], abs(recs[-1]["u_min"] - row["u_min"]))
             worst["dt"] = max(worst["dt"], abs(out.dt - row["dt"]) / row["dt"])
     ms = sorted(r["ms"] for r in recs[1:])
@@ -1737,6 +1777,7 @@ def mems_phases(dev) -> None:
     check(res.success and e_u <= 1e-4, f"mems_bdf015: u off scipy's by {e_u}")
     check(res.steps <= 1.1 * int(gold["nsteps"]),
           f"mems_bdf015: {res.steps} accepted steps against scipy's {int(gold['nsteps'])}")
+    return recs
 
 
 def cli_phase(dev, tmp: pathlib.Path) -> dict:
@@ -2075,6 +2116,266 @@ def dist_phases(dev, prepared, tmp: pathlib.Path) -> dict:
             "droplet_longrun": longrun_phase(dev, prepared, tmp)}
 
 
+# -- the last four drivers and the native API ---------------------------------------
+
+FLAGSHIP_RECORD = ROOT / "benchmarks" / "flagship_droplet_91x61.jsonl"
+FLAGSHIP91_STEPS = 3            # record rows 1-3
+# the port on the CPU from its own 1000-volume-step inflation against the
+# record's rows 1-3: equal Newton counts (3, 3, 3), |ddt|/dt <= 5.2e-9 (the
+# scale law's norm of two f32-inner Newton solutions), |dR_eff| <= 1.1e-12,
+# |d min spacing| <= 1.2e-12; the gates leave ~20x and ~100x of that for the
+# card's other reduction orders
+FLAGSHIP_GATE_DT = 1e-7
+FLAGSHIP_GATE_R = 1e-10
+FLAGSHIP_N = 1024
+FLAGSHIP_VSTEPS = 50            # of the driver's 1000: 1000 PMA sub-steps, not 20,000
+# of 1000, in chunks of 5 (of 25): the splice after the first chunk.  From
+# the cut inflation the residual at u_old is ~1.25e3 dt (on the card), so
+# Newton takes no iteration, and launches no kernel, until dt = 9e-9: the
+# scale law adds 1 a step while u stands still, and step 9 is the first
+# that iterates
+FLAGSHIP_STEPS = 10
+FLAGSHIP_CHUNK = 5
+FLAGSHIP_PMA = 20               # PMA sub-steps a step, of 400 (the mesh step unchanged)
+SH_FULL_STEPS = 250             # of the experiment's 2500
+NATIVE_N = 64
+
+
+def quiet(fn):
+    """``(fn(), seconds, stdout lines)``: a driver's printing kept aside."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, secs = timed(fn)
+    return out, secs, buf.getvalue().splitlines()
+
+
+def sh_full_phase(dev) -> dict:
+    """Phase 31: ``examples/sh_full_experiment`` for SH_FULL_STEPS steps.
+    Returns its sh_operator launches by dtype."""
+    from iterative_solvers_tpu_torch.examples import sh_full_experiment as se
+    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+
+    ps.reset_launches()
+    (line, u, iters), secs, _ = quiet(lambda: se.experiment(SH_FULL_STEPS, dev))
+    launches = dict(ps.sh_operator_kernel.launches_by_dtype)
+    emit({"phase": "sh_full_experiment", **line, "cut": {"steps": [SH_FULL_STEPS, 2500]},
+          "newton_iters_set": sorted(set(iters.tolist())), "sh_operator_launches": launches,
+          "seconds": secs})
+    check(line["all_converged"] and line["worst_fnorm"] <= se.F_TOL,
+          f"sh_full_experiment: {line}")
+    check(launches["f32"] > 0 and launches["f64"] > 0,
+          f"sh_full_experiment: sh_operator not launched in both dtypes {launches}")
+    return launches
+
+
+def mems_touchdown_example(dev, touchdown: list, tmp: pathlib.Path) -> None:
+    """Phase 32: ``examples/mems_touchdown.main`` in chunks of
+    ``TOUCHDOWN_CHUNK`` with ``u_stop`` at phase 22's u_min one step before
+    the second chunk's end: it stops at that chunk's end, its rows equal to
+    phase 22's run of the same steps (``touchdown``) and row 1 to the
+    record's."""
+    from iterative_solvers_tpu_torch.examples import mems_touchdown as mt
+
+    out_dir = tmp / "mems_touchdown"
+    chunk = TOUCHDOWN_CHUNK
+    u_stop = touchdown[2 * chunk - 2]["u_min"]
+    got, secs, log = quiet(lambda: mt.main([
+        f"max_steps={3 * chunk}", f"chunk={chunk}", f"u_stop={u_stop!r}",
+        f"out_dir={out_dir}", f"cpu={int(dev.type == 'cpu')}"]))
+    rows = got["rows"]
+    with open(MEMS_RECORD) as f:
+        row1 = next(r for r in map(json.loads, f) if r.get("step") == 1)
+    err = {"vs_phase_22": {k: max(abs(r[k] - w[k]) / (w[k] if k == "dt" else 1.0)
+                                  for r, w in zip(rows, touchdown))
+                           for k in ("u_min", "dt", "t")},
+           "vs_record_row_1": {"u_min": abs(rows[0]["u_min"] - row1["u_min"]),
+                               "dt": abs(rows[0]["dt"] - row1["dt"]) / row1["dt"]}}
+    written = sorted(p.name for p in out_dir.iterdir())
+    with open(got["path"]) as f:
+        lines = list(map(json.loads, f))
+    emit({"phase": "mems_touchdown_example",
+          "cut": {"max_steps": [3 * chunk, 60000], "chunk": [chunk, 500],
+                  "u_stop": [u_stop, -0.9]},
+          "steps": len(rows), "reached": got["reached"], "t": rows[-1]["t"],
+          "u_min": rows[-1]["u_min"], "ms_per_step": secs * 1e3 / len(rows),
+          "errors": err, "gates": {"u_min": TOUCHDOWN_GATE_UMIN, "dt_rel": TOUCHDOWN_GATE_DT},
+          "written": written, "seconds": secs, "log": log[:3]})
+    check(len(rows) == 2 * chunk and got["reached"] and all(r["converged"] for r in rows),
+          f"mems_touchdown_example: {len(rows)} steps, not a stop at the second chunk's end")
+    check(all(e["u_min"] <= TOUCHDOWN_GATE_UMIN and e["dt"] <= TOUCHDOWN_GATE_DT
+              and e.get("t", 0.0) <= TOUCHDOWN_GATE_DT for e in err.values()),
+          f"mems_touchdown_example off phase 22's run or the record: {err}")
+    check(written == ["mems_touchdown.jsonl"], f"mems_touchdown_example: wrote {written}")
+    check(lines[0]["summary"] and lines[0]["steps"] == len(rows)
+          and lines[1:] == mt.thin(rows), "mems_touchdown_example: the record's lines")
+
+
+def mems_bdf_touchdown_example(dev, tmp: pathlib.Path) -> None:
+    """Phase 33: ``examples/mems_bdf_touchdown.main`` to tf = 0.05 in 2
+    segments against the record's first two rows."""
+    from iterative_solvers_tpu_torch.examples import mems_bdf_touchdown as mb
+
+    with open(MEMS_BDF_RECORD) as f:
+        lines = list(map(json.loads, f))
+    summary, rec = lines[0], lines[1:3]
+    got, secs, _ = quiet(lambda: mb.main(["0.05", "2", f"device={dev}",
+                                          f"out_dir={tmp / 'mems_bdf'}"]))
+    rows = got["rows"]
+    first, second = rows
+    emit({"phase": "mems_bdf_touchdown_example", "cut": {"tf": [0.05, 0.25],
+                                                         "segments": [2, 10]},
+          "rows": rows, "record": rec,
+          "u_min_minus_record": [r["u_min_bdf"] - w["u_min_bdf"] for r, w in zip(rows, rec)],
+          "counts_as_record": [(r["steps_cum"], r["rejected"]) == (w["steps_cum"],
+                                                                   w["rejected"])
+                               for r, w in zip(rows, rec)],
+          "record_max_abs_diff_vs_split": summary["max_abs_diff_vs_split"],
+          "seconds": secs})
+    # the first segment at the mems_bdf phase's gates, with the record's counts
+    check((first["steps_cum"], first["rejected"]) == (rec[0]["steps_cum"], rec[0]["rejected"]),
+          f"mems_bdf_touchdown_example: counts {first} against {rec[0]}")
+    check(abs(first["u_min_bdf"] - rec[0]["u_min_bdf"]) <= 1e-6
+          and abs(first["diff"]) <= 2.5e-5, f"mems_bdf_touchdown_example: {first}")
+    check(abs(second["diff"]) <= summary["max_abs_diff_vs_split"],
+          f"mems_bdf_touchdown_example: t = 0.05 off the split curve by {second['diff']}")
+
+
+def flagship91_phase(dev, inflated, tmp: pathlib.Path) -> None:
+    """Phase 34: ``examples/droplet_flagship`` at 91x61 from phase 18's
+    inflation (the driver's own: 1000 volume steps of 20 f64 PMA sub-steps,
+    dtmesh 5e-9, the identity mesh) for FLAGSHIP91_STEPS steps against the
+    record's first rows."""
+    import torch
+    from iterative_solvers_tpu_torch.examples import droplet_flagship as fl
+
+    s = fl.setup(0)
+    q, u = inflated
+    (recs, c, _), secs, _ = quiet(lambda: fl.evolve(
+        s, u, q, FLAGSHIP91_STEPS, fl.chunk_for(0, FLAGSHIP91_STEPS), dev, out_dir=tmp))
+    with open(FLAGSHIP_RECORD) as f:
+        record = [json.loads(x) for x in f][1:1 + FLAGSHIP91_STEPS]
+    err = [{"dt_rel": abs(r["dt"] - w["dt"]) / w["dt"],
+            "r_eff": abs(r["r_eff"] - w["r_eff"]),
+            "min_spacing": abs(r["min_spacing"] - w["min_spacing"])}
+           for r, w in zip(recs, record)]
+    emit({"phase": "flagship_91x61", "cut": {"steps": [FLAGSHIP91_STEPS, 1000]},
+          "start": "inflate_fixture's state", "records": recs,
+          "newton_iters_record": [w["newton_iters"] for w in record],
+          "errors_vs_record": err,
+          "gates": {"dt_rel": FLAGSHIP_GATE_DT, "r_eff": FLAGSHIP_GATE_R,
+                    "min_spacing": FLAGSHIP_GATE_R},
+          "step_s": secs / FLAGSHIP91_STEPS, "seconds": secs})
+    check([r["newton_iters"] for r in recs] == [w["newton_iters"] for w in record]
+          and all(r["converged"] for r in recs),
+          f"flagship_91x61: Newton counts {[r['newton_iters'] for r in recs]}")
+    check(all(e["dt_rel"] <= FLAGSHIP_GATE_DT and e["r_eff"] <= FLAGSHIP_GATE_R
+              and e["min_spacing"] <= FLAGSHIP_GATE_R for e in err),
+          f"flagship_91x61 off the record: {err}")
+    check(bool(torch.isfinite(c.u).all()), "flagship_91x61: state not finite")
+
+
+def flagship1024_phase(dev, tmp: pathlib.Path) -> int:
+    """Phase 35: ``examples/droplet_flagship`` at 1024^2 from a cut
+    inflation, FLAGSHIP_STEPS steps in chunks of FLAGSHIP_CHUNK with the
+    sharded checkpoint splice.  Returns its droplet_jvp launches."""
+    from iterative_solvers_tpu_torch.examples import droplet_flagship as fl
+    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+
+    s = fl.setup(FLAGSHIP_N)
+    (q, u, min_jac), secs_inf = timed(lambda: fl.inflate(s, FLAGSHIP_VSTEPS, dev))
+    jvp_matvec.launches = 0
+    (recs, c, spliced), secs, _ = quiet(lambda: fl.evolve(
+        s, u, q, FLAGSHIP_STEPS, FLAGSHIP_CHUNK, dev, pma_loops=FLAGSHIP_PMA, out_dir=tmp))
+    launches = jvp_matvec.launches
+    emit({"phase": "flagship_1024", "n": FLAGSHIP_N,
+          "cut": {"vsteps": [FLAGSHIP_VSTEPS, 1000], "steps": [FLAGSHIP_STEPS, 1000],
+                  "chunk": [FLAGSHIP_CHUNK, 25], "pma_loops": [FLAGSHIP_PMA, s.pma_loops]},
+          "dt": s.dt, "dtmesh_inflation": s.dtmesh_inf, "dtmesh_evolve": s.dtmesh_ev,
+          "inflate_s": secs_inf, "min_jac": min_jac,
+          "records": recs, "splice": spliced, "droplet_jvp_launches": launches,
+          "step_s": secs / FLAGSHIP_STEPS, "seconds": secs})
+    check(all(r["converged"] for r in recs), f"flagship_1024: {recs}")
+    check(spliced is not None and spliced["du"] == 0.0 and spliced["dq"] == 0.0,
+          f"flagship_1024: splice {spliced}")
+    check(all(r["min_spacing"] > 0 for r in recs), "flagship_1024: mesh tangled")
+    check(launches > 0, "flagship_1024 launched no droplet_jvp kernel")
+    return launches
+
+
+def native_phase(dev, tmp: pathlib.Path) -> dict:
+    """Phase 36: the native API at n = 64 on the card against scipy and the
+    CPU, and its module driver.  Returns the sh_operator launches."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.optimize import newton_krylov as scipy_nk
+    from scipy.sparse.linalg import spsolve
+    from iterative_solvers_tpu_torch import native
+    from iterative_solvers_tpu_torch.native import __main__ as driver
+    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops import sparse
+
+    n = NATIVE_N
+    rng = np.random.default_rng(3)
+    lib = native.ensure_built()
+    a = sparse.sh_operator(n, 40.0 / n, 0.01)        # the SH operator, 4096 rows
+    x = rng.standard_normal(n * n)
+    spmv_err = float(np.abs(native.spmv_csr(a, x, device=dev) - a @ x).max())
+    # a well-posed system on the same sparsity: I - 0.05 L
+    m = (sp.identity(n * n) - 0.05 * a).tocsr()
+    b = rng.standard_normal(n * n)
+    (xs, lg), lg_s = timed(lambda: native.lgmres_csr(m, b, tol=1e-10, device=dev))
+    lg_err = float(np.abs(xs - spsolve(m.tocsc(), b)).max())
+
+    def residual(v):
+        return np.tanh(v) + 0.4 * np.roll(v, 3) ** 2 - 0.2
+    xn, nk = native.nonlin_solve(residual, np.zeros(n), f_tol=1e-10, device=dev)
+    nk_err = float(np.abs(xn - scipy_nk(residual, np.zeros(n), f_tol=1e-10)).max())
+
+    u0 = rng.standard_normal(n * n)
+    ps.reset_launches()
+    (ug, conv), sh_s = timed(lambda: native.sh_evolve(u0, 3, n=n, device=dev))
+    launches = dict(ps.sh_operator_kernel.launches_by_dtype)
+    uc, conv_c = native.sh_evolve(u0, 3, n=n, device="cpu")
+    sh_err = float(np.abs(ug - uc).max())
+    out = tmp / "sh_out.txt"
+    ps.reset_launches()
+    rc, drv_s, log = quiet(lambda: driver.main([str(n), "40", "0.2", "1.0", "0.01", "1.0",
+                                                str(out), f"device={dev}"]))
+    for k, v in ps.sh_operator_kernel.launches_by_dtype.items():
+        launches[k] += v
+    data = np.loadtxt(out)
+    emit({"phase": "native", "n": n, "library": str(lib), "spmv_max_abs_err": spmv_err,
+          "lgmres": {**lg, "max_abs_err_vs_spsolve": lg_err, "seconds": lg_s},
+          "nonlin_solve": {**nk, "max_abs_err_vs_scipy": nk_err},
+          "sh_evolve": {"converged": conv, "converged_cpu": conv_c,
+                        "max_abs_diff_vs_cpu": sh_err, "seconds": sh_s},
+          "driver": {"rc": rc, "stdout": log, "values": int(data.size), "seconds": drv_s},
+          "sh_operator_launches": launches})
+    check(lib.exists(), f"native: no library at {lib}")
+    check(spmv_err <= 1e-12 * float(np.abs(a @ x).max()), f"native spmv_csr: {spmv_err}")
+    check(lg["converged"] and lg_err <= 1e-8, f"native lgmres_csr: {lg}, {lg_err}")
+    check(nk["converged"] and nk_err <= 1e-6, f"native nonlin_solve: {nk}, {nk_err}")
+    check(conv == conv_c == 3 and sh_err <= 1e-8, f"native sh_evolve: {conv}, {sh_err}")
+    check(rc == 0 and any("steps=5 converged=5" in x for x in log)
+          and data.shape == (n * n,) and np.isfinite(data).all(), f"native driver: {log}")
+    check(launches["f64"] > 0, f"native: sh_operator not launched in f64 {launches}")
+    return launches
+
+
+def final_phases(dev, inflated, touchdown, tmp: pathlib.Path) -> dict:
+    """Phases 31-36 from phase 18's inflated 91x61 state and phase 22's
+    touchdown steps; returns their kernel launches by phase."""
+    sh_full = sh_full_phase(dev)
+    mems_touchdown_example(dev, touchdown, tmp)
+    mems_bdf_touchdown_example(dev, tmp)
+    flagship91_phase(dev, inflated, tmp)
+    return {"sh_full_experiment": sh_full, "flagship_1024": flagship1024_phase(dev, tmp),
+            "native": native_phase(dev, tmp)}
+
+
 def main() -> int:
     import torch
 
@@ -2119,10 +2420,10 @@ def main() -> int:
     sp_rows, (sp_bench_launches, sp_bench_by_path), sp_main_launches = sparse_phases(dev)
 
     # -- 17-19. the droplet drivers and the headline bench --------------------------
-    launches_evolve = droplet_driver_phases(dev, prepared)
+    launches_evolve, inflated91 = droplet_driver_phases(dev, prepared)
 
     # -- 20-25. the MEMS workload and the CLI -----------------------------------------
-    mems_phases(dev)
+    touchdown = mems_phases(dev)
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = cli_phase(dev, pathlib.Path(tmp))
 
@@ -2131,6 +2432,12 @@ def main() -> int:
         dist_launches = dist_phases(dev, prepared, pathlib.Path(tmp))
     new_jvp = {k: dist_launches[k] for k in ("large_scale_droplet", "droplet_longrun")}
     new_stencil = dist_launches["dist_sh2048"]
+
+    # -- 31-36. the last four drivers and the native API ------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        final = final_phases(dev, inflated91, touchdown, pathlib.Path(tmp))
+    new_jvp["flagship_1024"] = final["flagship_1024"]
+    final_sh = {k: sum(final[k].values()) for k in ("sh_full_experiment", "native")}
 
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2192,11 +2499,12 @@ def main() -> int:
                                "dist_sh2048": new_stencil["lap_periodic"]}},
         {**entry("sh_operator", rows["sh_operator", f"{SH_N}x{SH_N}_f32"],
                  sh_launches["f32"] + sh_launches["f64"] + cli_launches["sh_operator"]
-                 + new_stencil["sh_operator"]),
+                 + new_stencil["sh_operator"] + sum(final_sh.values())),
          "launches_by_dtype": sh_launches,
          "launches_by_phase": {"sh2048": sh_launches["f32"] + sh_launches["f64"],
                                "cli": cli_launches["sh_operator"],
-                               "dist_sh2048": new_stencil["sh_operator"]},
+                               "dist_sh2048": new_stencil["sh_operator"], **final_sh},
+         "launches_by_dtype_by_phase": {k: final[k] for k in final_sh},
          **{k: rows["sh_operator", f"{SH_N}x{SH_N}_f32"][k] for k in versus + ("path",)},
          "f64": {"launches": sh_launches["f64"], "shape": sh64["shape"],
                  **{k: sh64[k] for k in numbers + versus + ("path",)}},
@@ -2207,11 +2515,11 @@ def main() -> int:
         spmv_entry("grid_dia_matvec", poisson_case, total("grid_dia_matvec"), 130,
                    launches_by_dtype=sp_main_launches["grid_dia_matvec"],
                    bench_launches=sp_bench_launches["grid_dia_matvec"]),
-        spmv_entry("dia_flat_matvec", poisson_case, total("dia_flat_matvec"), 130,
+        spmv_entry("dia_flat_matvec", poisson_case, total("dia_flat_matvec"), 462,
                    launches_by_dtype=sp_main_launches["dia_flat_matvec"],
                    bench_launches=sp_bench_launches["dia_flat_matvec"]),
         spmm_entry("grid_dia_matmat", 279),
-        spmm_entry("grid_dia_matmat_interleaved", 462),
+        spmm_entry("grid_dia_matmat_interleaved", 279),
     ]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -28,8 +28,13 @@ layout and function names so each counterpart is easy to find:
                  collectives, metrics, timers, offline rendering
 - ``cli``      — ``python -m iterative_solvers_tpu_torch.cli
                  {sh,droplet,mems,poisson}``
-- ``examples`` — the large-grid droplet drivers
-                 (``python -m iterative_solvers_tpu_torch.examples.<name>``)
+- ``examples`` — the JAX package's six drivers (the large-grid droplet
+                 runs, the flagship, the full SH experiment, the MEMS
+                 touchdown runs):
+                 ``python -m iterative_solvers_tpu_torch.examples.<name>``
+- ``native``   — the native solver library's entry points (CSR SpMV,
+                 LGMRES, JFNK on a numpy callback, the SH driver) over
+                 the port's own solvers
 
 It imports ``torch`` (and numpy/scipy) only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``; with no GPU present and no

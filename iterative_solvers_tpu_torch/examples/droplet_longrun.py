@@ -55,11 +55,11 @@ from ..io import fixtures as fx
 from ..models import droplet as dp
 from ..ops import curvilinear
 from ..solvers.newton import NewtonKrylov
+from . import OUT_DIR, split_args
 
 DROPS = [(0.0, 0.0, 1.0, 1.0), (3.0, 0.0, 1.0, 1.0)]
 H_WET = 0.1
 FIXTURE = "initdrop_coal_1_91-61_100_0.005_0.01_0.1_0.15.txt"
-OUT_DIR = pathlib.Path(__file__).resolve().parents[2] / "runs"
 PSEUDO_RATIO = 1.2e-2    # mesh pseudo-time : physical time, from the 91x61 run
 MAX_ATTEMPTS = 4
 
@@ -67,15 +67,6 @@ MAX_ATTEMPTS = 4
 def effective_radius(u, jac, dx, dy):
     area = torch.sum((u > H_WET) * torch.abs(jac)) * dx * dy
     return torch.sqrt(area / np.pi)
-
-
-def parse_opts(argv):
-    opts = {}
-    for a in argv:
-        if "=" in a:
-            k, v = a.split("=", 1)
-            opts[k] = v
-    return opts
 
 
 def longrun_config(n: int, o: dict):
@@ -180,7 +171,7 @@ def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if len(argv) > 0 else 1024
     max_steps = int(argv[1]) if len(argv) > 1 else 100000
-    o = parse_opts(argv[2:])
+    o = split_args(argv[2:])[1]
     tag = o.get("tag", f"{n}sq")
     dev = resolve_device(o.get("device", "cuda"))
 

@@ -46,6 +46,7 @@ class LgmresResult(NamedTuple):
     iters: int             # total inner (Arnoldi) iterations
     resnorm: float         # final residual norm ||b - A x||, recomputed
     converged: bool
+    cycles: int            # outer cycles run (``maxiter`` bounds them)
 
 
 def init_recycle(shape, outer_k: int, dtype, device="cuda",
@@ -165,4 +166,4 @@ def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
         r = b - matvec(x)
         res = ndt.type(_norm(r, group).item())
     return (LgmresResult(x=x, iters=iters, resnorm=float(res),
-                         converged=bool(res <= tol_abs)), rec)
+                         converged=bool(res <= tol_abs), cycles=cycles), rec)
