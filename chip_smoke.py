@@ -7,8 +7,10 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
  2. build       — compiles every CUDA source of
                   ``iterative_solvers_tpu_torch/ops/csrc`` into one library;
                   ``resources``: registers, shared memory, spills and
-                  resident blocks an SM of the three redesigned kernels
-                  (the slab SpMM at 13 terms x 8 right-hand sides).
+                  resident blocks an SM of the four redesigned kernels
+                  (the slab SpMM at 13 terms x 8 right-hand sides; the
+                  tiled SpMV on its vector path in f32 and f64 and its
+                  scalar path in f64).
  3. prepare     — the 1024^2 droplet state as the large-grid example
                   prepares it: the 91x61 coalescence fixture upsampled,
                   deviation-form mesh, 3 x 60 f32 PMA sweeps at dtmesh
@@ -73,8 +75,13 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   (the row-slab kernel: ``path`` ``slab``, timed in turns
                   against the general kernel of the earlier design,
                   ``v1_*``), and x 8 at 1024^2 on the far-shift clamped one
-                  (``path`` ``general``).  Same gates; the library yardstick
-                  is one ``torch.sparse`` CSR product.
+                  (``path`` ``general``).  Every ``grid_dia_matvec`` row
+                  says which path of the tiled kernel it took (``path``:
+                  ``vector`` or ``scalar``) and is held against, and timed
+                  in turns with, the one-thread-a-point kernel of the
+                  earlier design (``err_vs_v1``, 0.0 expected; ``v1_*``).
+                  Same gates; the library yardstick is one ``torch.sparse``
+                  CSR product.
 12. spmv_bench  — the kernel bench's path: each of the four chained 20 times
                   on its own output at 2048^2 f32, launch counts (the SpMM
                   ones by path) read around.
@@ -89,7 +96,9 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   residual within 1e-9 ||b||, CG fields within 1e-8 of the
                   direct one, iteration counts within 2% of each other, flow
                   rate within 1e-3 of the exact series; launches by kernel
-                  and dtype; 50 iterations under ``torch.profiler``.
+                  and dtype (``grid_dia_matvec`` all on its scalar path: the
+                  999-column f64 rows are not whole 16-byte vectors); 50
+                  iterations under ``torch.profiler``.
 15. precond_small — the preconditioner test's 23^2 system on the card: GMRES
                   with Jacobi, block-Jacobi, ILU(0) and the spectral
                   preconditioner takes the CPU run's iteration counts.
@@ -406,10 +415,12 @@ def in_turns(new, old) -> dict:
 
 
 def kernel_resources() -> dict:
-    """What the compiler and the card give the three redesigned kernels:
+    """What the compiler and the card give the four redesigned kernels:
     registers a thread, shared-memory bytes a block, local (spill) bytes a
     thread, resident blocks an SM, threads a block; the slab SpMM at the
-    kernel bench's launch (13 terms, 8 right-hand sides, 2 halo rows)."""
+    kernel bench's launch (13 terms, 8 right-hand sides, 2 halo rows); the
+    clamped tiled SpMV on its vector path (f32, f64) and its scalar path
+    (f64: the Poisson 999^2 main path)."""
     import ctypes
     from iterative_solvers_tpu_torch.ops import _build
 
@@ -423,7 +434,11 @@ def kernel_resources() -> dict:
                        ("grid_dia_matmat_f32",
                         lambda: lib.grid_dia_matmat_resources(0, 13, 8, buf)),
                        ("grid_dia_matmat_f64",
-                        lambda: lib.grid_dia_matmat_resources(1, 13, 8, buf))):
+                        lambda: lib.grid_dia_matmat_resources(1, 13, 8, buf)),
+                       ("grid_dia_matvec_f32", lambda: lib.grid_dia_matvec_resources(0, 1, buf)),
+                       ("grid_dia_matvec_f64", lambda: lib.grid_dia_matvec_resources(1, 1, buf)),
+                       ("grid_dia_matvec_f64_scalar",
+                        lambda: lib.grid_dia_matvec_resources(1, 0, buf))):
         err = call()
         check(err == 0, f"resources of {name}: CUDA error {err}")
         out[name] = dict(zip(keys, buf))
@@ -958,6 +973,7 @@ def spmv_kernel_rows(dev, operators):
         rows["grid_dia_matvec", case] = spmv_row(
             "grid_dia_matvec", case, a, grid, 1, lambda: spmv.grid_dia_matvec(a, x),
             lambda: a._apply(x), lambda: torch.mv(lib_a, xf), gate(dtype),
+            old=lambda: spmv._matvec_v1(a, x), path=spmv.matvec_path(a, x),
             cyclic=cyclic, max_abs_dy=max(abs(dy) for dy, _ in a.shifts))
         if case in (f"sh_cyclic_{n2}_f32", f"poisson_{npo}_f64"):
             keep[case] = a
@@ -1068,9 +1084,12 @@ def spmv_bench(dev, operators, a32, chain: int = 20, nrhs: int = 8):
                for w in (spmv.grid_dia_matmat, spmv.grid_dia_matmat_interleaved)}
     check(all(v["slab"] == chain + 2 for v in by_path.values()),
           f"spmv bench SpMM launches by path {by_path}: the chains must take the slab kernel")
+    mv_by_path = dict(spmv.grid_dia_matvec.launches_by_path)
+    check(mv_by_path["vector"] == chain + 2,
+          f"spmv bench SpMV launches by path {mv_by_path}: the chain must take the vector path")
     emit({"phase": "spmv_bench", "n": n, "chain": chain, "nrhs": nrhs,
           "flat_diagonals": len(flat.offsets), "ms_per_launch": out, "launches": launches,
-          "spmm_launches_by_path": by_path})
+          "spmm_launches_by_path": by_path, "matvec_launches_by_path": mv_by_path})
     return launches, by_path
 
 
@@ -1149,6 +1168,10 @@ def poisson999(dev, a_grid, a_flat):
                          "ms_per_iter": seconds * 1e3 / res.iters,
                          "err_vs_direct": err}
     launches = {w.__name__: dict(w.launches_by_dtype) for w in spmv.WRAPPERS}
+    by_path = dict(spmv.grid_dia_matvec.launches_by_path)
+    check(by_path == {"vector": 0, "scalar": solves["grid_dia"]["iters"] + 2},
+          f"poisson999: grid_dia_matvec launches by path {by_path}: every one on the "
+          "scalar path (999-column f64 rows)")
     iters = [s["iters"] for s in solves.values()]
     check(max(iters) - min(iters) <= 0.02 * min(iters),
           f"poisson999: CG iteration counts {iters} differ by more than 2%")
@@ -1167,7 +1190,8 @@ def poisson999(dev, a_grid, a_flat):
     emit({"phase": "poisson999", "n": n, "unknowns": m * m, "dtype": "float64",
           "direct_seconds": direct_s, "direct_first_call_seconds": first_s,
           "cg": solves, "flow_rate": flow, "flow_rate_exact": q_exact,
-          "launches_by_dtype": launches, "profile_50_iterations": prof})
+          "launches_by_dtype": launches, "matvec_launches_by_path": by_path,
+          "profile_50_iterations": prof})
     return launches
 
 
@@ -2510,11 +2534,20 @@ def main() -> int:
                  **{k: sh64[k] for k in numbers + versus + ("path",)}},
          "streaming_4096": {k: rows["sh_operator", "4096x4096_f32"][k]
                             for k in numbers + versus + ("path",)}},
-        # rows 4 and 5 at the Poisson main path's shape, with its launches; the
-        # two SpMM layouts, which only the kernel bench reaches, with the chain's
+        # rows 4 and 5 at the Poisson main path's shape, with its launches (row 4
+        # in turns against its earlier design, with its far-shift and streaming
+        # rows); the two SpMM layouts, which only the kernel bench reaches, with
+        # the chain's
         spmv_entry("grid_dia_matvec", poisson_case, total("grid_dia_matvec"), 130,
                    launches_by_dtype=sp_main_launches["grid_dia_matvec"],
-                   bench_launches=sp_bench_launches["grid_dia_matvec"]),
+                   bench_launches=sp_bench_launches["grid_dia_matvec"],
+                   **{k: sp_rows["grid_dia_matvec", poisson_case][k]
+                      for k in versus + ("path", "err_vs_v1")},
+                   **{label: {k: sp_rows["grid_dia_matvec", case][k]
+                              for k in numbers + versus + ("path", "err_vs_v1")}
+                      for label, case in (("far_shift_1024", f"sh_clamped_{SP_N}_f32"),
+                                          ("streaming_4096", f"dirichlet_{SP_N4}_f32"),
+                                          ("cyclic_2048", f"sh_cyclic_{SP_N2}_f32"))}),
         spmv_entry("dia_flat_matvec", poisson_case, total("dia_flat_matvec"), 462,
                    launches_by_dtype=sp_main_launches["dia_flat_matvec"],
                    bench_launches=sp_bench_launches["dia_flat_matvec"]),

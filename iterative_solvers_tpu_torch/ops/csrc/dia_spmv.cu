@@ -23,21 +23,48 @@
 // (nterms + 2 nrhs) for the SpMM; two operations per coefficient are far
 // below the card's rate.
 //
-// Design: one thread per output point, neighbouring threads on
-// neighbouring columns, so every coefficient load is coalesced and is the
-// only read of its address; the shifted reads of x overlap between threads
-// and are served by L1/L2 through the read-only path.  The terms come as a
-// small int32 table in device memory — (k, dy, dx) or (k, off) per term,
-// in the order the plain version sums them — so any number of terms and
-// any shifts are taken with one compiled kernel; all threads of a warp
-// read the same table entry (one broadcast load).  The table is prepared
-// by the wrapper: cyclic shifts are reduced to [0, n) so that the wrap is
-// one compare and subtract, and clamped terms that can reach no point are
-// left out.  The SpMM kernels keep a register tile of 8 right-hand sides
-// per thread and read each coefficient once per tile (once per point for
-// nrhs <= 8); the two layouts differ only in the strides of x and y.
-// Element offsets are 64-bit: nterms * ny * nx passes 2^31 at 13 fields x
-// 16384^2.
+// The terms come as a small int32 table in device memory — (k, dy, dx) or
+// (k, off) per term, in the order the plain version sums them — so any
+// number of terms and any shifts are taken with one compiled kernel.  The
+// table is prepared by the wrapper: cyclic shifts are reduced to [0, n)
+// so that the wrap is one compare and subtract, and clamped terms that can
+// reach no point are left out.  Element offsets are 64-bit: nterms * ny *
+// nx passes 2^31 at 13 fields x 16384^2.
+//
+// The SpMV grid_dia_matvec (the "tiled" kernel below) gives each block a
+// tile of 8 rows x 128 columns and builds, at its start, the block's own
+// list of live terms in shared memory, in table order, from the table: a
+// term none of whose sources lies in the grid for the tile is dropped; a
+// term all of whose sources lie in the grid (cyclic: none of which wraps
+// within the tile) becomes one flat offset of x with no per-point test;
+// the rest keep the per-point test.  Interior tiles of the far-shift
+// containers (33 stored fields, |dy| up to ny - 1) so walk their 13 near
+// terms with no test and skip the 20 far ones that the one-thread-a-point
+// kernel of the earlier design tested at every point.  A thread computes 4
+// neighbouring points of a row: one 16-byte vector of f32, two of f64
+// (128 columns apart in both), where the rows are whole, aligned vectors;
+// 4 scalar points 32 columns apart otherwise (odd widths: the "scalar"
+// path, chosen by the wrapper from shape and address alone).  The loads of
+// 4 terms are issued before their multiply-adds, so a thread has 4 terms x
+// 4 points of coefficients and x in flight where the earlier kernel had one
+// load behind a dependent chain of table loads and a branch.  Coefficients
+// are read once, past L1; the shifted reads of x overlap between
+// neighbouring threads and terms and are served by L1 through the
+// read-only path.  Each point sums its live terms in table order, each
+// product fused into one FMA; a dropped term or an untaken point adds
+// d = 0 times x = 0, exactly nothing (the sum is never -0), so the kernel
+// equals the earlier one bit for bit.  Lists longer than one chunk of 256
+// terms are built and walked a chunk at a time.  That earlier kernel stays
+// as grid_dia_matvec_v1 for timing in turns.
+//
+// The SpMM's "general" kernel is one thread per output point, neighbouring
+// threads on neighbouring columns, so every coefficient load is coalesced
+// and is the only read of its address; the shifted reads of x overlap
+// between threads and are served by L1/L2 through the read-only path; all
+// threads of a warp read the same table entry (one broadcast load).  It
+// keeps a register tile of 8 right-hand sides per thread and reads each
+// coefficient once per tile (once per point for nrhs <= 8); the two
+// layouts differ only in the strides of x and y.
 //
 // The SpMM has two kernels, chosen by the wrapper from shape, term table
 // and address alone (ops/spmv.py::spmm_path).  The one above is the
@@ -103,8 +130,12 @@ __device__ __forceinline__ bool shifted(int i, int d, int n, int& src) {
   }
 }
 
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+// The SpMV of the earlier design, one thread a point (grid_dia_matvec_v1).
 template <class T, bool CYCLIC>
-__global__ void grid_dia_matvec_kernel(const T* __restrict__ data,
+__global__ void grid_dia_matvec_v1_kernel(const T* __restrict__ data,
                                        const int* __restrict__ terms, int nterms,
                                        const T* __restrict__ x, T* __restrict__ y,
                                        int ny, int nx) {
@@ -210,8 +241,8 @@ bool grid_launch_shape(int ny, int nx, dim3* grid) {
 }
 
 template <class T>
-int launch_grid_matvec(const T* data, const int* terms, int nterms, int cyclic,
-                       const T* x, T* y, int ny, int nx, void* stream) {
+int launch_grid_matvec_v1(const T* data, const int* terms, int nterms, int cyclic,
+                          const T* x, T* y, int ny, int nx, void* stream) {
   dim3 grid;
   if (nterms < 0 || !grid_launch_shape(ny, nx, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -219,11 +250,301 @@ int launch_grid_matvec(const T* data, const int* terms, int nterms, int cyclic,
   const dim3 block(kBX, kBY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cyclic) {
-    grid_dia_matvec_kernel<T, true><<<grid, block, 0, s>>>(data, terms, nterms, x, y, ny, nx);
+    grid_dia_matvec_v1_kernel<T, true><<<grid, block, 0, s>>>(data, terms, nterms, x, y, ny,
+                                                              nx);
   } else {
-    grid_dia_matvec_kernel<T, false><<<grid, block, 0, s>>>(data, terms, nterms, x, y, ny, nx);
+    grid_dia_matvec_v1_kernel<T, false><<<grid, block, 0, s>>>(data, terms, nterms, x, y, ny,
+                                                               nx);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the tiled SpMV with per-block live-term lists ---------------------------------
+
+constexpr int kMvThreads = 256;        // a block: 8 warps
+constexpr int kMvChunk = kMvThreads;   // terms classified a pass, one a thread
+
+// A term as one block sees it: its coefficient field, and either the flat
+// offset of its sources (whole) or the shift each point tests (partial).
+struct LiveTerm {
+  long long coef;  // k * ny * nx: the field's first element
+  long long xoff;  // whole: dy * nx + dx, after the wrap of a cyclic axis
+  int dy, dx;      // partial: the table's shift
+  int whole;
+};
+
+// The tile's indices [lo, hi] along an axis of length n, shifted by d: 0 no
+// source in the grid (clamped), 1 every source in it (clamped) or none of
+// them wrapping (cyclic; *eff is then the shift that reaches them), 2 some
+// of each.
+template <bool CYCLIC>
+__device__ __forceinline__ int axis_kind(int lo, int hi, int d, int n, int* eff) {
+  *eff = d;
+  if constexpr (CYCLIC) {
+    if (hi + d < n) return 1;
+    if (lo + d >= n) {
+      *eff = d - n;
+      return 1;
+    }
+    return 2;
+  } else {
+    if (hi + d < 0 || lo + d >= n) return 0;
+    return lo + d >= 0 && hi + d < n ? 1 : 2;
+  }
+}
+
+// One tiling of the tiled SpMV: TX of the block's threads lie along a row;
+// a thread takes NV slots along a row (TX * V columns apart) of RPT rows
+// (kMvThreads / TX rows apart); a slot is one 16-byte vector (VEC: rows of
+// whole, aligned vectors) or one point; the loads of U terms are issued
+// before their multiply-adds; MINB resident blocks an SM cap the
+// registers (1: no cap).
+template <class T, bool VEC, int NV, int RPT, int U, int TX_ = 32, int MINB_ = 1>
+struct MvTiling {
+  using Type = T;
+  static constexpr bool kVec = VEC;
+  static constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;  // points a slot
+  static constexpr int NS = NV, R = RPT, UN = U, TX = TX_, MINB = MINB_;
+  static constexpr int P = NV * V;                 // points a thread along a row
+  static constexpr int TY = kMvThreads / TX;
+  static constexpr int W = TX * P, H = TY * RPT;   // the block's tile
+  static_assert(kMvThreads % TX == 0 && TX % 32 == 0, "whole warps along a row");
+};
+
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 q = __ldcg(reinterpret_cast<const double2*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// The tuning script's probes (PROBE): 1 every term tested at every point,
+// none dropped (no list); 2 the loads without the multiply-adds (the
+// loaded bits are xor-ed); 3 the coefficients alone (no x read, x = 1);
+// 4 x alone (no coefficient read, d = 1).
+enum MvProbe { kMvKernel = 0, kMvNoList = 1, kMvLoadsAlone = 2, kMvCoefAlone = 3, kMvXAlone = 4 };
+
+__device__ __forceinline__ float mix_bits(float a, float d, float x) {
+  return __uint_as_float(__float_as_uint(a) ^ __float_as_uint(d) ^ __float_as_uint(x));
+}
+__device__ __forceinline__ double mix_bits(double a, double d, double x) {
+  return __longlong_as_double(__double_as_longlong(a) ^ __double_as_longlong(d)
+                              ^ __double_as_longlong(x));
+}
+
+template <class G, bool CYCLIC, int PROBE>
+__global__ void __launch_bounds__(kMvThreads, G::MINB)
+grid_dia_matvec_tiled_kernel(const typename G::Type* __restrict__ data,
+                             const int* __restrict__ terms, int nterms,
+                             const typename G::Type* __restrict__ x,
+                             typename G::Type* __restrict__ y, int ny, int nx) {
+  using T = typename G::Type;
+  constexpr int V = G::V, NS = G::NS, P = G::P, R = G::R, U = G::UN;
+  __shared__ LiveTerm s_list[kMvChunk];
+  __shared__ int s_live[kMvThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid % G::TX, ty = tid / G::TX;
+  // the tile's grid points: rows [r0, r1), columns [c0, c1)
+  const int r0 = blockIdx.y * G::H, c0 = blockIdx.x * G::W;
+  const int r1 = min(r0 + G::H, ny), c1 = min(c0 + G::W, nx);
+  const long long field = static_cast<long long>(ny) * nx;
+
+  // the thread's points: row[q] x (col[m] .. col[m] + V - 1), slot m at
+  // flat index base[q] + m * TX * V; a slot lies in the grid whole or not
+  // at all (VEC: nx is whole vectors)
+  int row[R], col[NS];
+  long long base[R];
+  bool rok[R], cok[NS];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    row[q] = r0 + ty + q * G::TY;
+    rok[q] = row[q] < ny;
+    base[q] = static_cast<long long>(row[q]) * nx + c0 + tx * V;
+  }
+#pragma unroll
+  for (int m = 0; m < NS; ++m) {
+    col[m] = c0 + (m * G::TX + tx) * V;
+    cok[m] = col[m] < nx;
+  }
+  T acc[R][P];
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+#pragma unroll
+    for (int p = 0; p < P; ++p) acc[q][p] = T(0);
+
+  for (int t0 = 0; t0 < nterms; t0 += kMvChunk) {
+    // classify the chunk's terms for the tile, one a thread, and keep the
+    // live ones in table order
+    const int t = t0 + tid;
+    int kind = 0;
+    LiveTerm e{};
+    if (t < nterms) {
+      const int k = terms[3 * t], dy = terms[3 * t + 1], dx = terms[3 * t + 2];
+      int ey, ex;
+      const int ky = axis_kind<CYCLIC>(r0, r1 - 1, dy, ny, &ey);
+      const int kx = axis_kind<CYCLIC>(c0, c1 - 1, dx, nx, &ex);
+      kind = (ky == 0 || kx == 0) ? 0 : (ky == 1 && kx == 1 ? 1 : 2);
+      if (PROBE == kMvNoList) kind = 2;
+      e.coef = k * field;
+      e.xoff = static_cast<long long>(ey) * nx + ex;
+      e.dy = dy;
+      e.dx = dx;
+      e.whole = kind == 1;
+    }
+    const unsigned live = __ballot_sync(0xffffffffu, kind != 0);
+    if (lane == 0) s_live[warp] = __popc(live);
+    __syncthreads();
+    int at = 0, n = 0;
+#pragma unroll
+    for (int w = 0; w < kMvThreads / 32; ++w) {
+      const int c = s_live[w];
+      at += w < warp ? c : 0;
+      n += c;
+    }
+    if (kind != 0) s_list[at + __popc(live & ((1u << lane) - 1u))] = e;
+    __syncthreads();
+
+    for (int e0 = 0; e0 < n; e0 += U) {
+      // the loads of U terms, then their multiply-adds in table order; a
+      // term past the list or a point it does not reach keeps d = x = 0
+      T d[U][R][P], xv[U][R][P];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+#pragma unroll
+          for (int p = 0; p < P; ++p) d[u][q][p] = xv[u][q][p] = T(0);
+        if (e0 + u >= n) continue;
+        const LiveTerm lt = s_list[e0 + u];
+        if (lt.whole) {
+          // one coefficient and one source pointer a row; the slots lie at
+          // constant offsets from them
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const T* dp = data + (lt.coef + base[q]);
+            const T* xp = x + (base[q] + lt.xoff);
+#pragma unroll
+            for (int m = 0; m < NS; ++m) {
+              if (!(rok[q] && cok[m])) continue;
+              T* dd = &d[u][q][m * V];
+              if constexpr (PROBE == kMvXAlone) {
+#pragma unroll
+                for (int i = 0; i < V; ++i) dd[i] = T(1);
+              } else if constexpr (G::kVec) {
+                load16(dp + m * G::TX * V, dd);
+              } else {
+                dd[0] = __ldcg(dp + m * G::TX);
+              }
+#pragma unroll
+              for (int i = 0; i < V; ++i) {
+                xv[u][q][m * V + i] =
+                    PROBE == kMvCoefAlone ? T(1) : __ldg(xp + (m * G::TX * V + i));
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+#pragma unroll
+            for (int m = 0; m < NS; ++m)
+#pragma unroll
+              for (int i = 0; i < V; ++i) {
+                int rr, cc;
+                if (!(rok[q] && cok[m]) || !shifted<CYCLIC>(row[q], lt.dy, ny, rr)
+                    || !shifted<CYCLIC>(col[m] + i, lt.dx, nx, cc)) {
+                  continue;
+                }
+                const long long here = base[q] + m * G::TX * V + i;
+                d[u][q][m * V + i] =
+                    PROBE == kMvXAlone ? T(1) : __ldcg(data + lt.coef + here);
+                xv[u][q][m * V + i] =
+                    PROBE == kMvCoefAlone ? T(1)
+                                          : __ldg(x + (static_cast<long long>(rr) * nx + cc));
+              }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            acc[q][p] = PROBE == kMvLoadsAlone ? mix_bits(acc[q][p], d[u][q][p], xv[u][q][p])
+                                               : fma_rn(d[u][q][p], xv[u][q][p], acc[q][p]);
+          }
+    }
+    __syncthreads();  // every thread is done with the list before the next chunk's
+  }
+
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+      if (!(rok[q] && cok[m])) continue;
+      T* out = y + (base[q] + m * G::TX * V);
+      if constexpr (G::kVec) {
+        store16(out, &acc[q][m * V]);
+      } else {
+        *out = acc[q][m];
+      }
+    }
+}
+
+// Launch the tiled SpMV of tiling G.  Returns cudaErrorInvalidValue for
+// what it does not take: a vector tiling on rows that are not whole,
+// aligned 16-byte vectors, or a grid past 65535 tiles of rows.
+template <class G, bool CYCLIC, int PROBE = kMvKernel>
+int launch_mv(const typename G::Type* data, const int* terms, int nterms,
+              const typename G::Type* x, typename G::Type* y, int ny, int nx, cudaStream_t s) {
+  const auto misaligned = (reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(x)
+                           | reinterpret_cast<uintptr_t>(y)) % 16;
+  const long long tiles_y = (static_cast<long long>(ny) + G::H - 1) / G::H;
+  if (nterms < 0 || ny < 1 || nx < 1 || tiles_y > static_cast<long long>(kMaxGridY)
+      || (G::kVec && (nx % G::V || misaligned))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  grid_dia_matvec_tiled_kernel<G, CYCLIC, PROBE>
+      <<<dim3(static_cast<unsigned>((nx + G::W - 1) / G::W), static_cast<unsigned>(tiles_y)),
+         kMvThreads, 0, s>>>(data, terms, nterms, x, y, ny, nx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chosen tilings (tools/tune_port_kernels.py spmv): 4 points a thread
+// along a row (one f32 vector, two f64 vectors or 4 scalar points), one
+// row, 32 threads along it: tiles of 8 x 128; the loads of 4 terms at a
+// time on the f32 vector path, of 2 elsewhere (4 f64 terms take 94-118
+// registers and ran slower); registers capped for 4 blocks an SM, which
+// the clamped kernels meet anyway and the cyclic ones (up to 86) meet with
+// no spill.  Mirrored in ops/spmv.py (_MV_ROWS, _MV_TX, _MV_POINTS,
+// _MV_CHUNK).
+template <class T, bool VEC>
+using MvOf = MvTiling<T, VEC, VEC ? static_cast<int>(sizeof(T)) / 4 : 4, 1,
+                      VEC && sizeof(T) == 4 ? 4 : 2, 32, 4>;
+
+template <class T>
+int launch_grid_matvec(const T* data, const int* terms, int nterms, int cyclic, int vec,
+                       const T* x, T* y, int ny, int nx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    using G = MvOf<T, true>;
+    return cyclic ? launch_mv<G, true>(data, terms, nterms, x, y, ny, nx, s)
+                  : launch_mv<G, false>(data, terms, nterms, x, y, ny, nx, s);
+  }
+  using G = MvOf<T, false>;
+  return cyclic ? launch_mv<G, true>(data, terms, nterms, x, y, ny, nx, s)
+                : launch_mv<G, false>(data, terms, nterms, x, y, ny, nx, s);
 }
 
 template <class T>
@@ -308,9 +629,6 @@ size_t slab_smem_bytes(int nterms, int nrhs) {
   return G::S * slab_stage_elems<G>(nterms, nrhs) * sizeof(typename G::Type)
          + 2 * sizeof(int) * static_cast<size_t>(nterms);
 }
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // 16 bytes from global to shared memory, asynchronously; with fill false
 // nothing is read and the 16 bytes are zeroed.
@@ -642,13 +960,21 @@ int slab_resources(K kernel, int threads, size_t bytes, int* r) {
 // data: (nfields, ny, nx) resp. (ndiags, n) row-major; terms: nterms rows of
 // (k, dy, dx) resp. (k, off), int32, on the device; x and y contiguous,
 // distinct, of the layout named above.  Cyclic shifts lie in [0, ny) x
-// [0, nx).  Each launches on `stream`, does not synchronise, and returns
-// the cudaError_t of the launch (0 on success).
+// [0, nx).  grid_dia_matvec's `vec` takes the vector path (nx a multiple
+// of a 16-byte vector, data, x and y 16-byte aligned: cudaErrorInvalidValue
+// otherwise) or, 0, the scalar one; grid_dia_matvec_v1 is the SpMV of the
+// earlier design.  Each launches on `stream`, does not synchronise, and
+// returns the cudaError_t of the launch (0 on success).
 #define DIA_SPMV_EXPORTS(T, tag)                                                        \
   extern "C" int grid_dia_matvec_##tag(const T* data, const int* terms, int nterms,     \
                                        const T* x, T* y, int ny, int nx, int cyclic,    \
-                                       void* stream) {                                  \
-    return launch_grid_matvec(data, terms, nterms, cyclic, x, y, ny, nx, stream);       \
+                                       int vec, void* stream) {                         \
+    return launch_grid_matvec(data, terms, nterms, cyclic, vec, x, y, ny, nx, stream);  \
+  }                                                                                     \
+  extern "C" int grid_dia_matvec_v1_##tag(const T* data, const int* terms, int nterms,  \
+                                          const T* x, T* y, int ny, int nx, int cyclic, \
+                                          void* stream) {                               \
+    return launch_grid_matvec_v1(data, terms, nterms, cyclic, x, y, ny, nx, stream);    \
   }                                                                                     \
   extern "C" int dia_flat_matvec_##tag(const T* data, const int* terms, int nterms,     \
                                        const T* x, T* y, long long n, void* stream) {   \
@@ -736,3 +1062,111 @@ extern "C" int grid_dia_matmat_slab_variant_f32(const float* data, const int* te
   }
 #undef SLAB_VARIANT
 }
+
+namespace {
+
+// the chosen tilings and the tuning script's variants of the clamped tiled
+// SpMV
+using MvF32 = MvOf<float, true>;
+using MvF32S = MvOf<float, false>;
+using MvF64 = MvOf<double, false>;
+using MvF64V = MvOf<double, true>;
+using MvF32U1 = MvTiling<float, true, 1, 1, 1>;
+using MvF32U2 = MvTiling<float, true, 1, 1, 2>;
+using MvF32U8 = MvTiling<float, true, 1, 1, 8>;
+using MvF32P8 = MvTiling<float, true, 2, 1, 4>;
+using MvF32R2 = MvTiling<float, true, 1, 2, 4>;
+using MvF32T64 = MvTiling<float, true, 1, 1, 4, 64>;
+using MvF32T128 = MvTiling<float, true, 1, 1, 4, 128>;
+using MvF32SU4 = MvTiling<float, false, 4, 1, 4>;
+using MvF64U1 = MvTiling<double, false, 4, 1, 1>;
+using MvF64U4 = MvTiling<double, false, 4, 1, 4>;
+using MvF64U8 = MvTiling<double, false, 4, 1, 8>;
+using MvF64P2 = MvTiling<double, false, 2, 1, 2>;
+using MvF64P8 = MvTiling<double, false, 8, 1, 2>;
+using MvF64R2 = MvTiling<double, false, 4, 2, 2>;
+using MvF64T64 = MvTiling<double, false, 4, 1, 2, 64>;
+using MvF64T128 = MvTiling<double, false, 4, 1, 2, 128>;
+using MvF64VU4 = MvTiling<double, true, 2, 1, 4>;
+using MvF64U4B4 = MvTiling<double, false, 4, 1, 4, 32, 4>;
+
+template <class G>
+int mv_resources(int* r) {
+  const auto kernel = grid_dia_matvec_tiled_kernel<G, false, kMvKernel>;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  r[0] = a.numRegs;
+  r[1] = static_cast<int>(a.sharedSizeBytes);
+  r[2] = static_cast<int>(a.localSizeBytes);
+  r[4] = kMvThreads;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[3], kernel, kMvThreads, 0));
+}
+
+}  // namespace
+
+// What the compiler and the card give the clamped tiled SpMV of dtype (0
+// f32, 1 f64) on the vector (vec 1) or scalar path: r[0] registers a
+// thread, r[1] shared-memory bytes a block, r[2] local (spill) bytes a
+// thread, r[3] resident blocks an SM, r[4] threads a block.
+extern "C" int grid_dia_matvec_resources(int dtype, int vec, int* r) {
+  if (dtype == 0) return vec ? mv_resources<MvF32>(r) : mv_resources<MvF32S>(r);
+  return vec ? mv_resources<MvF64V>(r) : mv_resources<MvF64>(r);
+}
+
+// The clamped tiled SpMV at other tilings, and its probes, for the tuning
+// script (tools/tune_port_kernels.py spmv); nothing of the package calls
+// them.  Variants as in the switches: around the f32 vector path and the
+// f64 scalar path (the Poisson 999^2 shape), each with the other path.
+#define MV_VARIANT(G, PROBE) launch_mv<G, false, PROBE>(data, terms, nterms, x, y, ny, nx, s)
+
+extern "C" int grid_dia_matvec_variant_f32(const float* data, const int* terms, int nterms,
+                                           const float* x, float* y, int ny, int nx,
+                                           void* stream, int variant) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return MV_VARIANT(MvF32, kMvKernel);         // the chosen tiling: P 4, U 4
+    case 1: return MV_VARIANT(MvF32U1, kMvKernel);       // U = 1
+    case 2: return MV_VARIANT(MvF32U2, kMvKernel);       // U = 2
+    case 3: return MV_VARIANT(MvF32U8, kMvKernel);       // U = 8
+    case 4: return MV_VARIANT(MvF32P8, kMvKernel);       // 8 points a thread
+    case 5: return MV_VARIANT(MvF32R2, kMvKernel);       // 2 rows a thread
+    case 6: return MV_VARIANT(MvF32S, kMvKernel);        // the scalar path (U = 2)
+    case 7: return MV_VARIANT(MvF32T64, kMvKernel);      // 64 threads along a row
+    case 8: return MV_VARIANT(MvF32T128, kMvKernel);     // 128 threads along a row
+    case 9: return MV_VARIANT(MvF32SU4, kMvKernel);      // the scalar path, U = 4
+    case 20: return MV_VARIANT(MvF32, kMvNoList);
+    case 21: return MV_VARIANT(MvF32, kMvLoadsAlone);
+    case 22: return MV_VARIANT(MvF32, kMvCoefAlone);
+    case 23: return MV_VARIANT(MvF32, kMvXAlone);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int grid_dia_matvec_variant_f64(const double* data, const int* terms, int nterms,
+                                           const double* x, double* y, int ny, int nx,
+                                           void* stream, int variant) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return MV_VARIANT(MvF64, kMvKernel);         // the chosen tiling: P 4, U 2
+    case 1: return MV_VARIANT(MvF64U1, kMvKernel);       // U = 1
+    case 2: return MV_VARIANT(MvF64U4, kMvKernel);       // U = 4
+    case 3: return MV_VARIANT(MvF64U8, kMvKernel);       // U = 8
+    case 4: return MV_VARIANT(MvF64P2, kMvKernel);       // 2 points a thread
+    case 5: return MV_VARIANT(MvF64P8, kMvKernel);       // 8 points a thread
+    case 6: return MV_VARIANT(MvF64R2, kMvKernel);       // 2 rows a thread
+    case 7: return MV_VARIANT(MvF64T64, kMvKernel);      // 64 threads along a row
+    case 8: return MV_VARIANT(MvF64T128, kMvKernel);     // 128 threads along a row
+    case 9: return MV_VARIANT(MvF64V, kMvKernel);        // the vector path (U = 2)
+    case 10: return MV_VARIANT(MvF64VU4, kMvKernel);     // the vector path, U = 4
+    case 11: return MV_VARIANT(MvF64U4B4, kMvKernel);    // U = 4 in 64 registers (spills)
+    case 20: return MV_VARIANT(MvF64, kMvNoList);
+    case 21: return MV_VARIANT(MvF64, kMvLoadsAlone);
+    case 22: return MV_VARIANT(MvF64, kMvCoefAlone);
+    case 23: return MV_VARIANT(MvF64, kMvXAlone);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#undef MV_VARIANT

@@ -2,7 +2,8 @@
 (counterpart of ``iterative_solvers_tpu/ops/pallas_spmv.py``).
 
 - :func:`grid_dia_matvec` — ``y = A x`` for a :class:`GridDIA` on the
-  ``(ny, nx)`` grid view, clamped or cyclic;
+  ``(ny, nx)`` grid view, clamped or cyclic, through the tiled kernel with
+  per-block live-term lists;
 - :func:`dia_flat_matvec` — ``y = A x`` for a row-aligned flat :class:`DIA`;
 - :func:`grid_dia_matmat` — the GridDIA product for a stack
   ``(nrhs, ny, nx)``, each coefficient read once per point;
@@ -18,6 +19,18 @@ eligibility gate and so no fallback.  A term whose source lies outside
 the grid adds nothing whatever its coefficient, as in the plain versions.
 Each wrapper's ``.launches`` counts its kernel launches and
 ``.launches_by_dtype`` splits the count into ``"f32"`` and ``"f64"``.
+
+The SpMV's tiled kernel gives each block an 8 x 128 tile and its own list
+of live terms (dead ones dropped, those whose sources all lie in the grid
+taken as one flat offset with no per-point test, the rest tested per
+point), a thread 4 points of a row; :func:`matvec_path` picks its
+``"vector"`` path (16-byte loads of coefficients and y) where the rows are
+whole, aligned 16-byte vectors and its ``"scalar"`` path otherwise, from
+shape and address alone; ``grid_dia_matvec.launches_by_path`` splits the
+count.  :func:`grid_dia_matvec_tiled_sim` rehearses it on the CPU, and
+:func:`grid_dia_block_terms` is its classification of the terms for one
+tile.  The one-thread-a-point SpMV of the earlier design stays reachable
+for timing in turns (``_matvec_v1``, counted nowhere).
 
 The SpMM has two hand-written kernels, chosen by :func:`spmm_path` from
 the container's terms, the shape and the addresses alone, never by a
@@ -55,8 +68,10 @@ def _kernel(name: str):
         args = [p, p, i, p, p, i, i, i, i, i, i, i, p]
     elif name.startswith("dia_flat_matvec"):
         args = [p, p, i, p, p, ctypes.c_longlong, p]
-    elif name.startswith("grid_dia_matvec"):
+    elif name.startswith("grid_dia_matvec_v1"):
         args = [p, p, i, p, p, i, i, i, p]
+    elif name.startswith("grid_dia_matvec"):
+        args = [p, p, i, p, p, i, i, i, i, p]
     else:  # the two SpMM layouts
         args = [p, p, i, p, p, i, i, i, i, p]
     return c_function(name, args)
@@ -208,6 +223,146 @@ def grid_dia_matmat_slab_sim(a: GridDIA, x, layout: str = "stacked", W: int = 64
     return y if layout == "stacked" else y.movedim(0, 1)
 
 
+# The tiled SpMV's tiling, as in csrc/dia_spmv.cu (MvTiling, MvOf): 8 rows x
+# 32 threads a tile, 4 points a thread along a row (one f32 vector, two f64
+# vectors 32 vectors apart, or 4 scalar points 32 columns apart): tiles of
+# 8 x 128; terms classified and walked in chunks of 256.
+_MV_ROWS, _MV_TX, _MV_POINTS, _MV_CHUNK = 8, 32, 4, 256
+
+
+def matvec_path(a: GridDIA, x2) -> str:
+    """Which path of the tiled SpMV takes ``A @ x2``: ``"vector"`` where
+    ``nx`` is a multiple of a 16-byte vector and ``x2`` and the
+    coefficients are 16-byte aligned (the output is allocated aligned), so
+    that coefficients and y move as 16-byte vectors; ``"scalar"``
+    otherwise (odd widths such as 999 f64).  Decided from shape and
+    address alone (a functorch-wrapped tensor has no address: ``"scalar"``,
+    and the launch refuses it)."""
+    vector = 16 // x2.element_size() if x2.dtype in _DTYPES else 0
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    if (not vector or a.grid[1] % vector or wrapped(x2) or wrapped(a.data)
+            or (x2.data_ptr() | a.data.data_ptr()) % 16):
+        return "scalar"
+    return "vector"
+
+
+def _axis_kind(lo: int, hi: int, d: int, n: int, cyclic: bool):
+    """The tile's indices ``[lo, hi]`` along an axis of length ``n``
+    shifted by ``d`` (``axis_kind`` in the CUDA source): ``("dead", d)``
+    when no source lies in the axis, ``("whole", e)`` when every source
+    does (cyclic: none of them wraps; ``e`` is the shift that reaches
+    them), ``("partial", d)`` otherwise."""
+    if cyclic:
+        if hi + d < n:
+            return "whole", d
+        if lo + d >= n:
+            return "whole", d - n
+        return "partial", d
+    if hi + d < 0 or lo + d >= n:
+        return "dead", d
+    return ("whole" if lo + d >= 0 and hi + d < n else "partial"), d
+
+
+def grid_dia_block_terms(rows, grid, cyclic: bool, r0: int, r1: int, c0: int, c1: int):
+    """The live-term list that the tiled kernel builds for the tile of rows
+    ``[r0, r1)`` and columns ``[c0, c1)`` from the term table ``rows``
+    (``(k, dy, dx)``, cyclic shifts in ``[0, n)``): the terms with a source
+    in the grid, in table order, as ``(kind, k, dy, dx, xoff)`` with kind
+    ``"whole"`` (every source in the grid and, cyclic, none wrapping within
+    the tile: ``xoff`` is the flat offset of the source, no per-point
+    test) or ``"partial"`` (tested per point)."""
+    ny, nx = grid
+    out = []
+    for k, dy, dx in rows:
+        ky, ey = _axis_kind(r0, r1 - 1, dy, ny, cyclic)
+        kx, ex = _axis_kind(c0, c1 - 1, dx, nx, cyclic)
+        if "dead" in (ky, kx):
+            continue
+        kind = "whole" if ky == kx == "whole" else "partial"
+        out.append((kind, k, dy, dx, ey * nx + ex))
+    return out
+
+
+def _tile_points(r0: int, c0: int, grid, rows: int, tx: int, points: int, vector: int):
+    """The grid points of the tile at ``(r0, c0)`` in the order the
+    kernel's threads hold them: for each row, thread ``t`` of ``tx`` takes
+    ``points // vector`` slots ``m``, each ``vector`` columns from
+    ``c0 + (m tx + t) vector`` (``vector`` 1: the scalar path); a slot lies
+    in the grid whole or not at all.  Returns the flat rows and columns."""
+    ny, nx = grid
+    rr, cs = [], []
+    for r in range(r0, min(r0 + rows, ny)):
+        for t in range(tx):
+            for m in range(points // vector):
+                c = c0 + (m * tx + t) * vector
+                if c < nx:
+                    rr += [r] * vector
+                    cs += range(c, c + vector)
+    return torch.tensor(rr, dtype=torch.long), torch.tensor(cs, dtype=torch.long)
+
+
+def grid_dia_matvec_tiled_sim(a: GridDIA, x2, path: str = "vector", rows: int = _MV_ROWS,
+                              tx: int = _MV_TX, points: int = _MV_POINTS,
+                              chunk: int = _MV_CHUNK):
+    """CPU rehearsal of the tiled SpMV, in plain PyTorch: ``y`` is built
+    tile by tile (``rows`` x ``tx * points`` columns, the last ones ragged)
+    from what the kernel reads, at the points its threads hold
+    (:func:`_tile_points`: 16-byte vectors on the ``"vector"`` path, single
+    columns on the ``"scalar"`` one).  For each chunk of ``chunk`` terms of
+    the table the tile's live list (:func:`grid_dia_block_terms`) is
+    walked in order: a whole term reads each point's coefficient and the
+    source at the point's flat index plus ``xoff``; a partial one tests
+    each point's source (wrapped when cyclic) and reads the coefficient
+    and x only where it lies in the grid.  What the kernel must not read is
+    NaN: every coefficient whose source lies outside the grid, x outside
+    ``[0, n)`` of the flat grid, and every output not written (each is
+    written once); a dropped live term, a flat offset that should have
+    wrapped or been tested, or a missed point so shows.  Products are
+    rounded on their own (the kernel fuses them into FMAs)."""
+    ny, nx = a.grid
+    vector = 16 // x2.element_size() if path == "vector" else 1
+    if nx % vector or points % vector:
+        raise ValueError(f"the vector path takes rows of whole 16-byte vectors and whole "
+                         f"vectors a thread, got nx = {nx}, {points} points a thread")
+    terms = _term_rows(a.shifts, a.grid, a.cyclic, False)
+    n = ny * nx
+    data = a.data.clone()
+    gr, gc = torch.arange(ny)[:, None], torch.arange(nx)[None, :]
+    if not a.cyclic:  # the coefficients the kernel must not read
+        for k, (dy, dx) in enumerate(a.shifts):
+            data[k][(gr + dy < 0) | (gr + dy >= ny) | (gc + dx < 0) | (gc + dx >= nx)] = \
+                float("nan")
+    flat = data.reshape(len(a.shifts), n)
+    nan = torch.full((n,), float("nan"), dtype=x2.dtype)
+    xpad = torch.cat([nan, x2.reshape(n), nan])  # a flat read outside [0, n) is NaN
+    y = torch.full((n,), float("nan"), dtype=x2.dtype)
+    width = tx * points
+    for r0 in range(0, ny, rows):
+        for c0 in range(0, nx, width):
+            pr, pc = _tile_points(r0, c0, a.grid, rows, tx, points, vector)
+            here = pr * nx + pc
+            acc = torch.zeros(here.numel(), dtype=x2.dtype)
+            for t0 in range(0, len(terms), chunk):
+                live = grid_dia_block_terms(terms[t0:t0 + chunk], a.grid, a.cyclic, r0,
+                                            min(r0 + rows, ny), c0, min(c0 + width, nx))
+                for kind, k, dy, dx, xoff in live:
+                    if kind == "whole":
+                        acc = acc + flat[k][here] * xpad[here + xoff + n]
+                        continue
+                    sr, sc = pr + dy, pc + dx
+                    if a.cyclic:
+                        sr, sc = sr % ny, sc % nx
+                    ok = (sr >= 0) & (sr < ny) & (sc >= 0) & (sc < nx)
+                    d, xs = torch.zeros_like(acc), torch.zeros_like(acc)
+                    d[ok] = flat[k][here[ok]]
+                    xs[ok] = xpad[(sr * nx + sc)[ok] + n]
+                    acc = acc + d * xs
+            if not bool(y[here].isnan().all()):
+                raise AssertionError(f"the tile at {(r0, c0)} writes a point twice")
+            y[here] = acc
+    return y.reshape(ny, nx)
+
+
 @lru_cache(maxsize=64)
 def _flat_terms(offsets, n: int, device: torch.device):
     """The flat kernel's term table: int32 rows ``(k, off)`` in the order
@@ -263,14 +418,26 @@ def _launch(wrapper, name: str, data, terms, x, *ints, path=None):
 
 
 def grid_dia_matvec(a: GridDIA, x2):
-    """``y = A @ x`` on the 2-D grid view ``x2`` of shape ``a.grid``."""
+    """``y = A @ x`` on the 2-D grid view ``x2`` of shape ``a.grid``:
+    through the tiled kernel on the path :func:`matvec_path` names."""
     ny, nx = a.grid
     _check_operands("grid_dia_matvec", a.data, x2, (len(a.shifts), ny, nx), (ny, nx))
     if x2.device.type == "cpu":
         return a._apply(x2)
     terms = _grid_terms(a.shifts, a.grid, a.cyclic, x2.device)
+    path = matvec_path(a, x2)
     return _launch(grid_dia_matvec, "grid_dia_matvec", a.data, terms, x2,
-                   ny, nx, int(a.cyclic))
+                   ny, nx, int(a.cyclic), int(path == "vector"), path=path)
+
+
+def _matvec_v1(a: GridDIA, x2):
+    """The one-thread-a-point SpMV of the earlier design on a CUDA grid
+    view, counted nowhere: for timing it against the tiled kernel in one
+    process."""
+    ny, nx = a.grid
+    _check_operands("grid_dia_matvec", a.data, x2, (len(a.shifts), ny, nx), (ny, nx))
+    terms = _grid_terms(a.shifts, a.grid, a.cyclic, x2.device)
+    return _launch(None, "grid_dia_matvec_v1", a.data, terms, x2, ny, nx, int(a.cyclic))
 
 
 def dia_flat_matvec(a: DIA, grid: tuple[int, int], x):
@@ -362,6 +529,7 @@ def reset_launches():
     for fn in WRAPPERS:
         fn.launches = 0
         fn.launches_by_dtype = dict.fromkeys(_DTYPES.values(), 0)
+    grid_dia_matvec.launches_by_path = {"vector": 0, "scalar": 0}
     for fn in (grid_dia_matmat, grid_dia_matmat_interleaved):
         fn.launches_by_path = {"slab": 0, "general": 0}
 

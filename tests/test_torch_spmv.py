@@ -10,8 +10,12 @@ here too, by a numpy emulation of the kernels' index logic.
 The ``gpu``-marked tests hold each CUDA kernel against its plain version
 on the card, at every row shape of the smoke run's kernel phase (f32 to
 1e-5 of max|plain|, f64 to 1e-12: the kernels contract multiply-add into
-FMA, the plain versions do not), and the two SpMM kernels (the row-slab
-and the general one) against each other at shapes that take each path:
+FMA, the plain versions do not), the tiled SpMV against the
+one-thread-a-point SpMV of the earlier design (bit for bit, on both of its
+paths, far-shift, odd-width and many-term containers and 1e30 coefficients
+where a source lies outside the grid), and the two SpMM kernels (the
+row-slab and the general one) against each other at shapes that take each
+path:
 ``python -m pytest --noconftest -m gpu tests/test_torch_spmv.py``
 (the JAX side is imported inside the ``jx`` fixture, so those tests also
 run on a machine that has the port and no JAX).
@@ -367,6 +371,83 @@ def test_cuda_grid_dia_matvec_matches_plain(case):
     if grid[0] <= 1024:  # and with coefficients where the containers store zeros
         b = a._replace(data=torch.randn_like(a.data))
         _close(spmv.grid_dia_matvec(b, x).cpu(), b._apply(x).cpu(), _gate(dtype))
+
+
+# (operator, grid, cyclic container, dtype, matvec_path): the smoke run's
+# far-shift, Poisson, Dirichlet 4096^2 and cyclic rows, ragged tiles on both
+# paths (37 x 132, 37 x 130), odd pitches (999 f64, 130 f32, 9 x 14 f32) and
+# the random containers of 536 / 391 terms (lists of several chunks)
+MATVEC_V1_GPU_CASES = {
+    "sh_clamped_1024_f32": ("sh", (1024, 1024), False, torch.float32, "vector"),
+    "sh_cyclic_2048_f32": ("sh", (2048, 2048), True, torch.float32, "vector"),
+    "dirichlet_4096_f32": ("dirichlet", (4096, 4096), False, torch.float32, "vector"),
+    "poisson_999_f64": ("poisson", (999, 999), False, torch.float64, "scalar"),
+    "sh_cyclic_1024_f64": ("sh", (1024, 1024), True, torch.float64, "vector"),
+    "biharmonic_37x132_f32": ("biharmonic", (37, 132), False, torch.float32, "vector"),
+    "sh_cyclic_37x130_f32": ("sh", (37, 130), True, torch.float32, "scalar"),
+    "sh_far_37x130_f64": ("sh", (37, 130), False, torch.float64, "vector"),
+    "dirichlet_37x999_f64": ("dirichlet", (37, 999), False, torch.float64, "scalar"),
+    "rect_9x14_f32": ("rect", (9, 14), False, torch.float32, "scalar"),
+    "random_24_cyclic_f64": ("random", (N, N), True, torch.float64, "vector"),
+    "random_24_clamped_f32": ("random", (N, N), False, torch.float32, "vector"),
+}
+
+
+def _matvec_case_matrix(kind, grid):
+    if kind in ("sh", "dirichlet", "biharmonic") and grid[0] != grid[1]:
+        return _grid_operator(kind, *grid)
+    return _gpu_matrix(kind, grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MATVEC_V1_GPU_CASES))
+def test_cuda_grid_dia_matvec_equals_v1(case):
+    """The tiled kernel sums each point's live terms in table order with
+    one FMA a term, as the one-thread-a-point kernel of the earlier design
+    does: on the path ``matvec_path`` names it equals that kernel bit for
+    bit, on the container's coefficients and on random ones everywhere,
+    and lies within the gate of the plain version."""
+    dev = _cuda()
+    kind, grid, cyclic, dtype, path = MATVEC_V1_GPU_CASES[case]
+    m = _matvec_case_matrix(kind, grid).astype(_np_dtype(dtype))
+    a = ts.GridDIA.from_scipy(m, grid, cyclic=cyclic, device=dev)
+    x = torch.tensor(_rand(grid, seed=3), dtype=dtype, device=dev)
+    assert spmv.matvec_path(a, x) == path
+    rand = a._replace(data=torch.tensor(_rand(tuple(a.data.shape), seed=8), dtype=dtype,
+                                        device=dev))
+    for b in (a, rand):
+        before = spmv.grid_dia_matvec.launches_by_path[path]
+        got, old, want = spmv.grid_dia_matvec(b, x), spmv._matvec_v1(b, x), b._apply(x)
+        torch.cuda.synchronize()
+        assert spmv.grid_dia_matvec.launches_by_path[path] == before + 1
+        assert torch.equal(got, old), float((got - old).abs().max())
+        _close(got.cpu(), want.cpu(), _gate(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,grid,dtype", [("biharmonic", (37, 132), torch.float32),
+                                             ("dirichlet", (37, 999), torch.float64),
+                                             ("sh", (64, 64), torch.float32)])
+def test_cuda_matvec_out_of_grid_coefficients_add_nothing(kind, grid, dtype):
+    """The card's version of test_out_of_grid_terms_add_nothing_whatever_the_
+    coefficient for the tiled SpMV, on both paths and on the far-shift
+    container (the non-cyclic SH operator, |dy| up to 63): 1e30 wherever a
+    source lies outside the grid gives the untouched container's product
+    bit for bit."""
+    dev = _cuda()
+    a = ts.GridDIA.from_scipy(_grid_operator(kind, *grid).astype(_np_dtype(dtype)), grid,
+                              device=dev)
+    data = a.data.clone()
+    for k, (dy, dx) in enumerate(a.shifts):
+        rows = torch.arange(grid[0], device=dev)[:, None] + dy
+        cols = torch.arange(grid[1], device=dev)[None, :] + dx
+        data[k][(rows < 0) | (rows >= grid[0]) | (cols < 0) | (cols >= grid[1])] = 1e30
+    assert int((data == 1e30).sum()) > 0
+    x = torch.tensor(_rand(grid, seed=6), dtype=dtype, device=dev)
+    b = a._replace(data=data)
+    got = spmv.grid_dia_matvec(b, x)
+    assert torch.equal(got, spmv.grid_dia_matvec(a, x))
+    assert torch.equal(got, spmv._matvec_v1(b, x))
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Tile and segment tuning of the port's three redesigned CUDA kernels on
-one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm]``.
+"""Tile and segment tuning of the port's four redesigned CUDA kernels on
+one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]``.
 
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
@@ -21,7 +21,16 @@ the device alone), the chosen design (``droplet``) or the earlier design
   columns a thread, where the halo rows come from, waves), its three probes
   (no copies; no arithmetic; copies alone), the interleaved layout, against
   the general kernel; and, for the card's streaming rate, a plain PyTorch
-  copy, sum and add over the bytes the 2048^2 x 8 product moves.
+  copy, sum and add over the bytes the 2048^2 x 8 product moves;
+- ``spmv``: the tiled ``grid_dia_matvec`` on the smoke run's clamped rows
+  (the far-shift SH container and the biharmonic at 1024^2 f32, Dirichlet
+  4096^2 f32 on the vector path; Poisson 999^2 f64 on the scalar path) at
+  each tiling of ``grid_dia_matvec_variant_{f32,f64}`` (points a thread,
+  rows a thread, terms whose loads are issued together, the other path),
+  its four probes (every term tested at every point: no list; the loads
+  without the multiply-adds; the coefficients alone; x alone), and the
+  cyclic SH 2048^2 f32 row, each against the one-thread-a-point kernel of
+  the earlier design (``v1``), with the bytes bound of each row.
 
 One JSON line per measurement, with the card's name and power limit first.
 """
@@ -45,10 +54,17 @@ JVP_TILES = {0: (16, 64, 256, 2), 1: (16, 64, 512, 2), 2: (32, 32, 512, 2)}
 JVP_PROBES = {3: "stages_only", 4: "copies_only"}
 
 
+_REPORTED = set()
+
+
 def ptxas_report(source: str):
-    """Compile one source with ``-Xptxas -v`` and print the resource lines."""
+    """Compile one source with ``-Xptxas -v`` and print the resource lines
+    (once a run)."""
     from iterative_solvers_tpu_torch.ops import _build
 
+    if source in _REPORTED:
+        return
+    _REPORTED.add(source)
     out = subprocess.run(
         ["nvcc", *_build.CUDA_FLAGS, "-Xptxas", "-v", "-c", str(_build.CSRC / source),
          "-o", "/dev/null"], capture_output=True, text=True, timeout=600)
@@ -236,6 +252,87 @@ def tune_spmm(dev):
             cs.emit(row)
 
 
+# variant of grid_dia_matvec_variant_{f32,f64} -> its tiling, as in
+# csrc/dia_spmv.cu: path, points a thread along a row P, rows a thread R,
+# terms whose loads are issued together U, threads along a row TX (variant
+# 0: the chosen tiling)
+MV_VARIANTS = {"f32": {0: "vector_P4_R1_U4_TX32", 1: "vector_U1", 2: "vector_U2",
+                       3: "vector_U8", 4: "vector_P8", 5: "vector_R2", 6: "scalar_P4_U2",
+                       7: "vector_TX64", 8: "vector_TX128", 9: "scalar_U4"},
+               "f64": {0: "scalar_P4_R1_U2_TX32", 1: "scalar_U1", 2: "scalar_U4",
+                       3: "scalar_U8", 4: "scalar_P2", 5: "scalar_P8", 6: "scalar_R2",
+                       7: "scalar_TX64", 8: "scalar_TX128", 9: "vector_P4_U2",
+                       10: "vector_U4", 11: "scalar_U4_in_64_registers"}}
+# its probes: every term tested at every point (no list); the loads without
+# the multiply-adds; the coefficients alone; x alone
+MV_PROBES = {20: "no_list", 21: "loads_alone", 22: "coefficients_alone", 23: "x_alone"}
+# (case, operator, n, cyclic, dtype tag): the smoke run's rows
+MV_ROWS = [("sh_clamped_1024_f32", "sh", 1024, False, "f32"),
+           ("biharmonic_1024_f32", "biharmonic", 1024, False, "f32"),
+           ("dirichlet_4096_f32", "dirichlet", 4096, False, "f32"),
+           ("poisson_999_f64", "poisson", 999, False, "f64"),
+           ("biharmonic_1024_f64", "biharmonic", 1024, False, "f64"),
+           ("sh_cyclic_2048_f32", "sh", 2048, True, "f32")]
+
+
+def tune_spmv(dev):
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.ops import _build, spmv
+    from iterative_solvers_tpu_torch.ops.sparse import GridDIA
+    from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
+
+    ptxas_report("dia_spmv.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    operators = cs.Operators()
+    for case, kind, n, cyclic, tag in MV_ROWS:
+        dtype = torch.float32 if tag == "f32" else torch.float64
+        npdt = np.float32 if tag == "f32" else np.float64
+        m = operators.get(kind, n)
+        a = GridDIA.from_scipy(m if cyclic else m.astype(npdt), (n, n), cyclic=cyclic,
+                               device=dev)
+        a = a._replace(data=a.data.to(dtype))
+        x = torch.tensor(np.random.default_rng(0).standard_normal((n, n)), dtype=dtype,
+                         device=dev)
+        want = a._apply(x)
+        scale = float(want.abs().max())
+        gate = 1e-5 if tag == "f32" else 1e-12
+        cost = spmv_kernel_cost(a.shifts, n, n, a.data.element_size(), cyclic=cyclic)
+        peak = cs.F32_FLOP_PER_S if tag == "f32" else cs.F64_FLOP_PER_S
+        bound_ms, _ = cost.bound_ms(cs.HBM_BYTES_PER_S, peak)
+        terms = spmv._grid_terms(a.shifts, a.grid, a.cyclic, dev)
+        out = torch.empty_like(x)
+        fn_c = _build.c_function(f"grid_dia_matvec_variant_{tag}", [p, p, i, p, p, i, i, p, i])
+
+        def variant(k):
+            err = fn_c(a.data.data_ptr(), terms.data_ptr(), terms.shape[0], x.data_ptr(),
+                       out.data_ptr(), n, n, torch.cuda.current_stream(dev).cuda_stream, k)
+            if err:
+                raise RuntimeError(f"variant {k}: CUDA error {err}")
+            return out
+
+        runs = [("v1", lambda: spmv._matvec_v1(a, x))]
+        if not cyclic:  # the variants are clamped kernels
+            runs += [(label, lambda k=k: variant(k)) for k, label in MV_VARIANTS[tag].items()
+                     if not (label.startswith("vector") and n % (16 // x.element_size()))]
+            runs += [(name, lambda k=k: variant(k)) for k, name in MV_PROBES.items()]
+        runs += [("chosen", lambda: spmv.grid_dia_matvec(a, x)), runs[0]]
+        for label, fn in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            ms = cs.device_ms(fn)
+            row = {"phase": "tune_spmv", "case": case, "fields": len(a.shifts),
+                   "terms": terms.shape[0], "variant": label, "device_ms": ms,
+                   "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
+            if label not in MV_PROBES.values():  # a probe's output is not A x
+                err = float((got - want).abs().max())
+                row["rel_err"] = err / scale
+                cs.check(err <= gate * scale, f"{label} on {case}: error {err} on {scale}")
+            if label == "chosen":
+                row["path"] = spmv.matvec_path(a, x)
+            cs.emit(row)
+
+
 def main() -> int:
     import torch
 
@@ -244,7 +341,7 @@ def main() -> int:
         return 2
     from iterative_solvers_tpu_torch.ops import _build
 
-    which = sys.argv[1:] or ["droplet", "sh", "spmm"]
+    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv"]
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
@@ -254,6 +351,8 @@ def main() -> int:
         tune_sh(dev)
     if "spmm" in which:
         tune_spmm(dev)
+    if "spmv" in which:
+        tune_spmv(dev)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 
