@@ -220,6 +220,16 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   3 ``sh_evolve`` steps against the CPU (1e-8, equal
                   converged counts), the module driver (``converged=5``);
                   ``sh_operator`` launches.
+37. surface     — the JAX package's public names on the port: every name the
+                  JAX subpackages' ``__init__`` bind (``SURFACE``, held equal
+                  to them by ``tests/test_torch_surface.py``) imported from the
+                  port's; ``Grid2D.lx`` / ``ly`` / ``n``;
+                  ``models.swift_hohenberg.apply_L`` on a 256^2 f32 field
+                  through ``import iterative_solvers_tpu_torch.models``: one
+                  ``sh_operator`` launch, within 1e-5 of max|plain|; one
+                  ``lgmres`` on the card unpacked as the JAX result and
+                  buffer; ``native.lgmres_csr``'s ``outer_cycles`` equal to
+                  the CPU run's.
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -2389,6 +2399,93 @@ def native_phase(dev, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# The names each JAX subpackage's __init__ binds (the card's machine has no
+# JAX to read them from; tests/test_torch_surface.py holds the two equal).
+SURFACE = {
+    "core": ("Grid2D", "square"),
+    "ops": ("stencils", "curvilinear", "dct", "sparse"),
+    "solvers": ("gmres", "GmresResult", "lgmres", "LgmresRecycle", "init_recycle",
+                "NewtonKrylov", "newton_krylov", "NewtonResult", "cg", "CGResult",
+                "BDF", "BDFResult", "trilu", "trisolve", "tridiag_solve",
+                "step_with_backoff", "evolve_with_backoff"),
+    "models": ("swift_hohenberg", "mems", "droplet", "heat", "wave", "poisson"),
+    "meshmove": ("PMAParams", "solve_pma", "loop_pma", "pma_dqdt", "mesh_steady_state",
+                 "smooth_and_regularise", "smooth_pass"),
+    "dist": ("make_mesh", "initialize_multihost", "local_block_shape",
+             "halo_exchange_1d", "with_halo", "sharded_lap_periodic",
+             "sharded_sh_operator", "pdot", "shard_field", "grid_sharding"),
+}
+SURFACE_N = 256                 # apply_L's field
+
+
+def surface_phase(dev) -> dict:
+    """Phase 37: code written against the JAX package's public names, run
+    on the port on the card.  Returns the sh_operator launches by dtype."""
+    import importlib
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import iterative_solvers_tpu_torch.models as m
+    from iterative_solvers_tpu_torch import native
+    from iterative_solvers_tpu_torch.core import Grid2D
+    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops import sparse, stencils
+    from iterative_solvers_tpu_torch.solvers import lgmres
+
+    t0 = time.perf_counter()
+    missing = [f"{pkg}.{name}" for pkg, names in SURFACE.items() for name in names
+               if not hasattr(importlib.import_module(f"iterative_solvers_tpu_torch.{pkg}"),
+                              name)]
+    check(not missing, f"surface: the port lacks {missing}")
+    g = Grid2D(91, 61, 0, 3, 0, 2)
+    check(g.lx == 3.0 and g.ly == 2.0 and g.n == 5551 and g.dx == 3.0 / 90,
+          f"surface: Grid2D lx {g.lx}, ly {g.ly}, n {g.n}, dx {g.dx}")
+
+    cfg = m.swift_hohenberg.SHConfig(n=SURFACE_N)
+    u = torch.tensor(np.random.default_rng(0).standard_normal((SURFACE_N, SURFACE_N)),
+                     dtype=torch.float32, device=dev)
+    ps.reset_launches()
+    got = m.swift_hohenberg.apply_L(u, cfg)
+    launches = dict(ps.sh_operator_kernel.launches_by_dtype)
+    want = stencils.sh_linear_operator(u, cfg.h, cfg.r)
+    sh_err = float((got - want).abs().max())
+    sh_scale = float(want.abs().max())
+    check(launches == {"f32": 1, "f64": 0}, f"surface: apply_L launches {launches}")
+    check(bool(torch.isfinite(got).all()) and sh_err <= 1e-5 * sh_scale,
+          f"surface: apply_L off its plain version by {sh_err} (scale {sh_scale})")
+
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((20, 20))
+    a = q @ q.T / 20 + np.eye(20)
+    b = rng.standard_normal(20)
+    at = torch.tensor(a, device=dev)
+    (x, iters, resnorm, converged), (z, az, count) = lgmres(
+        lambda v: at @ v, torch.tensor(b, device=dev), tol=1e-12, inner_m=5, outer_k=2)
+    lg_err = float(np.abs(x.cpu().numpy() - np.linalg.solve(a, b)).max())
+    az_err = float((az - z @ at.T).abs().max())
+    check(converged and lg_err <= 1e-9 and count == 2 and az_err <= 1e-12,
+          f"surface: lgmres converged {converged}, err {lg_err}, count {count}, "
+          f"az off A z by {az_err}")
+
+    n = 24
+    mat = (sp.identity(n * n) - 0.05 * sparse.sh_operator(n, 40.0 / n, 0.01)).tocsr()
+    rhs = rng.standard_normal(n * n)
+    _, card = native.lgmres_csr(mat, rhs, tol=1e-10, inner_m=5, device=dev)
+    _, cpu = native.lgmres_csr(mat, rhs, tol=1e-10, inner_m=5, device="cpu")
+    emit({"phase": "surface", "names": sum(len(v) for v in SURFACE.values()),
+          "grid": {"lx": g.lx, "ly": g.ly, "n": g.n},
+          "apply_L": {"shape": [SURFACE_N, SURFACE_N], "max_abs_err": sh_err,
+                      "scale": sh_scale, "gate": 1e-5, "launches": launches},
+          "lgmres": {"iters": iters, "resnorm": resnorm, "converged": converged,
+                     "max_abs_err_vs_solve": lg_err, "count": count},
+          "lgmres_csr": {"card": card, "cpu": cpu},
+          "seconds": time.perf_counter() - t0})
+    check(card["converged"] and card["outer_cycles"] == cpu["outer_cycles"],
+          f"surface: lgmres_csr on the card {card}, on the CPU {cpu}")
+    return launches
+
+
 def final_phases(dev, inflated, touchdown, tmp: pathlib.Path) -> dict:
     """Phases 31-36 from phase 18's inflated 91x61 state and phase 22's
     touchdown steps; returns their kernel launches by phase."""
@@ -2461,7 +2558,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         final = final_phases(dev, inflated91, touchdown, pathlib.Path(tmp))
     new_jvp["flagship_1024"] = final["flagship_1024"]
-    final_sh = {k: sum(final[k].values()) for k in ("sh_full_experiment", "native")}
+
+    # -- 37. the JAX package's public API on the port -------------------------------
+    final["surface"] = surface_phase(dev)
+    final_sh = {k: sum(final[k].values()) for k in ("sh_full_experiment", "native", "surface")}
 
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,0 +1,1 @@
+from .grid import Grid2D, square  # noqa: F401

@@ -26,16 +26,28 @@ class Grid2D:
     yt: float = 1.0
 
     @property
+    def lx(self) -> float:
+        return self.xr - self.xl
+
+    @property
+    def ly(self) -> float:
+        return self.yt - self.yb
+
+    @property
     def dx(self) -> float:
-        return (self.xr - self.xl) / (self.nx - 1)
+        return self.lx / (self.nx - 1)
 
     @property
     def dy(self) -> float:
-        return (self.yt - self.yb) / (self.ny - 1)
+        return self.ly / (self.ny - 1)
 
     @property
     def shape(self) -> tuple[int, int]:
         return (self.ny, self.nx)
+
+    @property
+    def n(self) -> int:
+        return self.nx * self.ny
 
     @cached_property
     def x(self) -> np.ndarray:

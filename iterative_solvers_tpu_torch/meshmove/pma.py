@@ -33,14 +33,14 @@ class PMAParams:
     mackenzie_c: float = 1.0   # Mackenzie constant (0.15 for the droplet)
     smoothing_iters: int = 4
     spectral_dtype: str | None = None   # e.g. "float32": DCT solve in f32
+    spectral_precision: str = "highest"
+    # "highest" or "high": both run the DCT matmuls in full f32 here (see
+    # ops.dct.dct2, which raises for anything lower).
     monitor_cap: float | None = None    # bounded mesh compression (fine grids)
     mesh_dtype: str | None = None
     # e.g. "float32": run the whole PMA sub-iteration in that dtype, with
     # the increment accumulated separately (see loop_pma).  None keeps the
     # state dtype.
-    spectral_precision: str = "highest"
-    # "highest" or "high": both run the DCT matmuls in full f32 here (see
-    # ops.dct.dct2, which raises for anything lower).
 
 
 @lru_cache(maxsize=16)

@@ -1,0 +1,1 @@
+from . import swift_hohenberg, mems, droplet, heat, wave, poisson  # noqa: F401

@@ -35,7 +35,7 @@ from .. import resolve_device, to_numpy
 from ..models.swift_hohenberg import SHConfig, make_cn_step
 from ..ops import _build
 from ..ops import sparse
-from ..solvers.lgmres import lgmres
+from ..solvers.lgmres import _lgmres_run
 from ..solvers.newton import NewtonKrylov
 
 F_TOL = 6.05545445239334e-06   # eps**(1/3): scipy's newton_krylov default
@@ -82,9 +82,11 @@ def lgmres_csr(a_csr, b, x0=None, *, tol=1e-8, maxiter=1000, inner_m=30,
         return a.matvec(v)
 
     b = _vec(b, dev)
-    res, _ = lgmres(matvec, b, None if x0 is None else _vec(x0, dev), tol=tol,
-                    atol=0.0, inner_m=inner_m, outer_k=outer_k, maxiter=maxiter)
-    return to_numpy(res.x), {"converged": res.converged, "outer_cycles": res.cycles,
+    res, _, cycles = _lgmres_run(matvec, b, None if x0 is None else _vec(x0, dev),
+                                 tol=tol, atol=0.0, inner_m=inner_m, outer_k=outer_k,
+                                 maxiter=maxiter, M=None, recycle=None, store_av=True,
+                                 group=None)
+    return to_numpy(res.x), {"converged": res.converged, "outer_cycles": cycles,
                              "matvecs": calls[0], "residual": res.resnorm}
 
 

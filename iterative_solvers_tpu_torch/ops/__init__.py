@@ -1,0 +1,1 @@
+from . import stencils, curvilinear, dct, sparse  # noqa: F401

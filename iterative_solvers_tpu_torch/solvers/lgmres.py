@@ -37,8 +37,8 @@ class LgmresRecycle(NamedTuple):
     """
 
     z: torch.Tensor                # (outer_k, *shape)
+    az: torch.Tensor | None        # (outer_k, *shape) or None
     count: int                     # number of valid entries
-    az: torch.Tensor | None = None  # (outer_k, *shape) or None
 
 
 class LgmresResult(NamedTuple):
@@ -46,7 +46,6 @@ class LgmresResult(NamedTuple):
     iters: int             # total inner (Arnoldi) iterations
     resnorm: float         # final residual norm ||b - A x||, recomputed
     converged: bool
-    cycles: int            # outer cycles run (``maxiter`` bounds them)
 
 
 def init_recycle(shape, outer_k: int, dtype, device="cuda",
@@ -55,8 +54,8 @@ def init_recycle(shape, outer_k: int, dtype, device="cuda",
     the caller passes ``device="cpu"``."""
     z = torch.zeros((outer_k,) + tuple(shape), dtype=dtype,
                     device=resolve_device(device))
-    return LgmresRecycle(z=z, count=0,
-                         az=torch.zeros_like(z) if store_av else None)
+    return LgmresRecycle(z=z, az=torch.zeros_like(z) if store_av else None,
+                         count=0)
 
 
 def _push_recycle(rec: LgmresRecycle, dx, adx=None, group=None) -> LgmresRecycle:
@@ -78,8 +77,9 @@ def _push_recycle(rec: LgmresRecycle, dx, adx=None, group=None) -> LgmresRecycle
             buf[rec.count] = new * scale
         return buf
 
-    return LgmresRecycle(z=pushed(rec.z, dx), count=min(rec.count + 1, k),
-                         az=None if rec.az is None else pushed(rec.az, adx))
+    return LgmresRecycle(z=pushed(rec.z, dx),
+                         az=None if rec.az is None else pushed(rec.az, adx),
+                         count=min(rec.count + 1, k))
 
 
 def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
@@ -145,6 +145,16 @@ def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
     returned buffer back in to speed up a sequence of related solves; a
     buffer passed in keeps its own ``store_av`` setting.
     """
+    res, rec, _ = _lgmres_run(matvec, b, x0, tol=tol, atol=atol, inner_m=inner_m,
+                              outer_k=outer_k, maxiter=maxiter, M=M, recycle=recycle,
+                              store_av=store_av, group=group)
+    return res, rec
+
+
+def _lgmres_run(matvec: Callable, b, x0, *, tol, atol, inner_m, outer_k, maxiter,
+                M, recycle, store_av, group):
+    """:func:`lgmres`'s solve; returns ``(result, recycle buffer, outer
+    cycles run)``, the last for the native API's report."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     precond = M if M is not None else (lambda v: v)
@@ -166,4 +176,4 @@ def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
         r = b - matvec(x)
         res = ndt.type(_norm(r, group).item())
     return (LgmresResult(x=x, iters=iters, resnorm=float(res),
-                         converged=bool(res <= tol_abs), cycles=cycles), rec)
+                         converged=bool(res <= tol_abs)), rec, cycles)

@@ -99,10 +99,9 @@ def _t_krylov(shape, b, solver):
         from iterative_solvers_tpu_torch.ops.stencils import lap_periodic
         return v - 0.1 * lap_periodic(v, 1.0)
 
-    run = {"gmres": lambda mv, r, g: gmres.gmres(mv, r, tol=1e-10, restart=10, group=g),
-           "lgmres": lambda mv, r, g: lgmres.lgmres(mv, r, tol=1e-10, inner_m=10,
-                                                    group=g)[0],
-           "cg": lambda mv, r, g: cg.cg(mv, r, tol=1e-10, group=g)}[solver]
+    run = {"gmres": lambda mv, r, g: gmres(mv, r, tol=1e-10, restart=10, group=g),
+           "lgmres": lambda mv, r, g: lgmres(mv, r, tol=1e-10, inner_m=10, group=g)[0],
+           "cg": lambda mv, r, g: cg(mv, r, tol=1e-10, group=g)}[solver]
     got = run(sharded, block, group)
     want = run(local, torch.tensor(b), None)
     return (th.gather_field(got.x, mesh).numpy(), got.iters, got.converged,

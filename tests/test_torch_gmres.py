@@ -12,14 +12,14 @@ import pytest
 import torch
 
 from iterative_solvers_tpu.solvers.newton import newton_krylov as j_nk
-from iterative_solvers_tpu_torch.solvers import gmres as tgm
-from iterative_solvers_tpu_torch.solvers import lgmres as tlg
 from iterative_solvers_tpu_torch.solvers.newton import newton_krylov as t_nk
 
-# the JAX package's solvers/__init__ re-exports the gmres and lgmres
+# both packages' solvers/__init__ re-export the gmres and lgmres
 # functions under their modules' names
 jgm = importlib.import_module("iterative_solvers_tpu.solvers.gmres")
 jlg = importlib.import_module("iterative_solvers_tpu.solvers.lgmres")
+tgm = importlib.import_module("iterative_solvers_tpu_torch.solvers.gmres")
+tlg = importlib.import_module("iterative_solvers_tpu_torch.solvers.lgmres")
 
 SHAPE = (8, 10)
 N = SHAPE[0] * SHAPE[1]

@@ -9,12 +9,12 @@ import pytest
 import torch
 
 from iterative_solvers_tpu.solvers.newton import NewtonKrylov as JNK
-from iterative_solvers_tpu_torch.solvers import lgmres as tlg
 from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov as TNK
 
-# the JAX package's solvers/__init__ re-exports the lgmres function under
+# both packages' solvers/__init__ re-export the lgmres function under
 # the module's name
 jlg = importlib.import_module("iterative_solvers_tpu.solvers.lgmres")
+tlg = importlib.import_module("iterative_solvers_tpu_torch.solvers.lgmres")
 
 SHAPE = (6, 8)
 N = SHAPE[0] * SHAPE[1]

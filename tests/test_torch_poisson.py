@@ -27,9 +27,9 @@ from iterative_solvers_tpu_torch.ops import dct as tdct
 from iterative_solvers_tpu_torch.ops import sparse as ts
 from iterative_solvers_tpu_torch.ops import spmv
 from iterative_solvers_tpu_torch.ops import stencils as tst
-from iterative_solvers_tpu_torch.solvers import cg as tcg
+from iterative_solvers_tpu_torch.solvers import cg as torch_cg
+from iterative_solvers_tpu_torch.solvers import gmres as torch_gmres
 from iterative_solvers_tpu_torch.solvers import fast_poisson as tfp
-from iterative_solvers_tpu_torch.solvers import gmres as tgm
 from iterative_solvers_tpu_torch.solvers import preconditioners as tpc
 
 RNG = np.random.default_rng(5)
@@ -71,7 +71,7 @@ def test_cg_matches_jax_on_the_poisson_system(precond):
     Mj = (lambda v: v / jnp.asarray(diag)) if precond else None
     Mt = (lambda v: v / torch.tensor(diag)) if precond else None
     rj = jax_cg(lambda u: -jst.lap_dirichlet_5pt(u, h), jnp.asarray(b), tol=1e-12, M=Mj)
-    rt = tcg.cg(lambda u: -tst.lap_dirichlet_5pt(u, h), torch.tensor(b), tol=1e-12, M=Mt)
+    rt = torch_cg(lambda u: -tst.lap_dirichlet_5pt(u, h), torch.tensor(b), tol=1e-12, M=Mt)
     assert bool(rj.converged) and rt.converged
     assert rt.iters == int(rj.iters)
     assert isinstance(rt.iters, int) and isinstance(rt.resnorm, float)
@@ -87,11 +87,11 @@ def test_cg_stops_at_maxiter_and_takes_x0():
     mvt = lambda u: -tst.lap_dirichlet_5pt(u, h)  # noqa: E731
     x0 = RNG.standard_normal((n, n))
     rj = jax_cg(mvj, jnp.asarray(b), jnp.asarray(x0), tol=1e-14, maxiter=7)
-    rt = tcg.cg(mvt, torch.tensor(b), torch.tensor(x0), tol=1e-14, maxiter=7)
+    rt = torch_cg(mvt, torch.tensor(b), torch.tensor(x0), tol=1e-14, maxiter=7)
     assert rt.iters == int(rj.iters) == 7 and not rt.converged and not bool(rj.converged)
     _close(rt.x, rj.x, rel=1e-11)
-    exact = tcg.cg(mvt, torch.tensor(b), rt.x, tol=1e-10)
-    again = tcg.cg(mvt, torch.tensor(b), exact.x, tol=1e-10)
+    exact = torch_cg(mvt, torch.tensor(b), rt.x, tol=1e-10)
+    again = torch_cg(mvt, torch.tensor(b), exact.x, tol=1e-10)
     assert again.iters == 0 and again.converged  # already below tol: no update
 
 
@@ -156,12 +156,12 @@ def test_poisson_cg_routes_match_jax_and_the_direct_solve(duct, route):
         b = torch.full((m, m), -1.0, dtype=torch.float64)
         if route == "grid_dia":
             a = ts.GridDIA.from_scipy(lap, (m, m), device="cpu")
-            res = tcg.cg(lambda v: spmv.grid_dia_matvec(a, v), b, tol=1e-12,
-                         maxiter=20 * n)
+            res = torch_cg(lambda v: spmv.grid_dia_matvec(a, v), b, tol=1e-12,
+                           maxiter=20 * n)
         else:
             a = ts.DIA.from_scipy(lap, device="cpu")
-            res = tcg.cg(lambda v: spmv.dia_flat_matvec(a, (m, m), v), b, tol=1e-12,
-                         maxiter=20 * n)
+            res = torch_cg(lambda v: spmv.dia_flat_matvec(a, (m, m), v), b, tol=1e-12,
+                           maxiter=20 * n)
         u = torch.nn.functional.pad(res.x, (1, 1, 1, 1))
         assert abs(res.iters - int(rj.iters)) <= 1
     assert res.converged
@@ -207,8 +207,8 @@ def _gmres_iters(a, b, Mj, Mt):
     dj, dt = jnp.asarray(a.toarray()), torch.tensor(a.toarray())
     rj = jax_gmres(lambda v: dj @ v, jnp.asarray(b), tol=1e-10, restart=30,
                    maxiter=600, M=Mj)
-    rt = tgm.gmres(lambda v: dt @ v, torch.tensor(b), tol=1e-10, restart=30,
-                   maxiter=600, M=Mt)
+    rt = torch_gmres(lambda v: dt @ v, torch.tensor(b), tol=1e-10, restart=30,
+                     maxiter=600, M=Mt)
     assert bool(rj.converged) and rt.converged
     np.testing.assert_allclose(a @ rt.x.numpy(), b, atol=1e-7)
     return int(rj.iters), rt.iters
@@ -251,6 +251,7 @@ def test_spectral_preconditioner_converges_in_one_shot(shifted_system):
     dj, dt = jnp.asarray(a.toarray()), torch.tensor(a.toarray())
     rj = jax_gmres(lambda v: (dj @ v.reshape(-1)).reshape(m, m), jnp.asarray(b.reshape(m, m)),
                    tol=1e-10, restart=10, M=jpc.spectral_helmholtz(5.0, h, h))
-    rt = tgm.gmres(lambda v: (dt @ v.reshape(-1)).reshape(m, m), torch.tensor(b.reshape(m, m)),
-                   tol=1e-10, restart=10, M=tpc.spectral_helmholtz(5.0, h, h))
+    rt = torch_gmres(lambda v: (dt @ v.reshape(-1)).reshape(m, m),
+                     torch.tensor(b.reshape(m, m)),
+                     tol=1e-10, restart=10, M=tpc.spectral_helmholtz(5.0, h, h))
     assert rt.converged and rt.iters == int(rj.iters) and rt.iters <= 3
