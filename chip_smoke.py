@@ -73,18 +73,23 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   on four operators; both SpMM layouts x 8 at 1024^2 and
                   2048^2 f32 and x 3 at 24^2 f64 on the cyclic SH container
                   (the row-slab kernel: ``path`` ``slab``, timed in turns
-                  against the general kernel of the earlier design,
-                  ``v1_*``), and x 8 at 1024^2 on the far-shift clamped one
-                  (``path`` ``general``).  Every ``grid_dia_matvec`` row
-                  says which path of the tiled kernel it took (``path``:
-                  ``vector`` or ``scalar``) and is held against, and timed
-                  in turns with, the one-thread-a-point kernel of the
-                  earlier design (``err_vs_v1``, 0.0 expected; ``v1_*``).
-                  Same gates; the library yardstick is one ``torch.sparse``
-                  CSR product.
+                  against the general (tiled) kernel, ``v1_*``), and the
+                  general kernel's rows (``path`` ``general``): x 8 at
+                  1024^2 f32 on the far-shift clamped container (its vector
+                  path) and the Poisson 999^2 operator x 8 f64 (its scalar
+                  path), each held against, and timed in turns with, the
+                  one-thread-a-point SpMM of the earlier design
+                  (``err_vs_v1``, exactly 0.0 or the run fails; ``v1_*``).
+                  Every ``grid_dia_matvec`` row says which path of the tiled
+                  kernel it took (``path``: ``vector`` or ``scalar``).  Same
+                  gates; the library yardstick is one ``torch.sparse`` CSR
+                  product.
 12. spmv_bench  — the kernel bench's path: each of the four chained 20 times
                   on its own output at 2048^2 f32, launch counts (the SpMM
-                  ones by path) read around.
+                  ones by path) read around; then (``spmm_general_chain``)
+                  both SpMM layouts chained 20 times on the far-shift clamped
+                  SH container at 1024^2 x 8 f32, the general kernel's path,
+                  launch counts by path read around.
 13. sh_sparse   — assembled against matrix-free at 2048^2, f32 and f64:
                   ``grid_dia_matvec`` on the cyclic SH container against the
                   ``sh_operator`` stencil kernel.
@@ -425,12 +430,13 @@ def in_turns(new, old) -> dict:
 
 
 def kernel_resources() -> dict:
-    """What the compiler and the card give the four redesigned kernels:
+    """What the compiler and the card give the five redesigned kernels:
     registers a thread, shared-memory bytes a block, local (spill) bytes a
     thread, resident blocks an SM, threads a block; the slab SpMM at the
     kernel bench's launch (13 terms, 8 right-hand sides, 2 halo rows); the
-    clamped tiled SpMV on its vector path (f32, f64) and its scalar path
-    (f64: the Poisson 999^2 main path)."""
+    clamped tiled SpMM (the general path) on its f32 vector path and f64
+    scalar path; the clamped tiled SpMV on its vector path (f32, f64) and
+    its scalar path (f64: the Poisson 999^2 main path)."""
     import ctypes
     from iterative_solvers_tpu_torch.ops import _build
 
@@ -445,6 +451,10 @@ def kernel_resources() -> dict:
                         lambda: lib.grid_dia_matmat_resources(0, 13, 8, buf)),
                        ("grid_dia_matmat_f64",
                         lambda: lib.grid_dia_matmat_resources(1, 13, 8, buf)),
+                       ("grid_dia_matmat_general_f32",
+                        lambda: lib.grid_dia_matmat_general_resources(0, 1, buf)),
+                       ("grid_dia_matmat_general_f64_scalar",
+                        lambda: lib.grid_dia_matmat_general_resources(1, 0, buf)),
                        ("grid_dia_matvec_f32", lambda: lib.grid_dia_matvec_resources(0, 1, buf)),
                        ("grid_dia_matvec_f64", lambda: lib.grid_dia_matvec_resources(1, 1, buf)),
                        ("grid_dia_matvec_f64_scalar",
@@ -983,8 +993,8 @@ def spmv_kernel_rows(dev, operators):
         rows["grid_dia_matvec", case] = spmv_row(
             "grid_dia_matvec", case, a, grid, 1, lambda: spmv.grid_dia_matvec(a, x),
             lambda: a._apply(x), lambda: torch.mv(lib_a, xf), gate(dtype),
-            old=lambda: spmv._matvec_v1(a, x), path=spmv.matvec_path(a, x),
-            cyclic=cyclic, max_abs_dy=max(abs(dy) for dy, _ in a.shifts))
+            path=spmv.matvec_path(a, x), cyclic=cyclic,
+            max_abs_dy=max(abs(dy) for dy, _ in a.shifts))
         if case in (f"sh_cyclic_{n2}_f32", f"poisson_{npo}_f64"):
             keep[case] = a
         del lib_a
@@ -1009,17 +1019,23 @@ def spmv_kernel_rows(dev, operators):
             keep["flat_" + case] = a
         del lib_a
 
-    # (case, grid, nrhs, dtype, cyclic container, the path it must take): the
-    # cyclic SH container takes the slab kernel, timed in turns against the
-    # general one; the far-shift clamped one (|dy| up to 1023) the general
-    matmat_cases = [(f"sh_cyclic_{n1}_x8_f32", (n1, n1), 8, f32, True, "slab"),
-                    (f"sh_cyclic_{n2}_x8_f32", (n2, n2), 8, f32, True, "slab"),
-                    ("sh_cyclic_24_x3_f64", (24, 24), 3, f64, True, "slab"),
-                    (f"sh_clamped_{n1}_x8_f32", (n1, n1), 8, f32, False, "general")]
-    for case, grid, nrhs, dtype, cyclic, path in matmat_cases:
-        m = operators.get("sh", grid[0])
+    # (case, operator, grid, nrhs, dtype, cyclic container, the path it must
+    # take): the cyclic SH container takes the slab kernel, timed in turns
+    # against the general one (information only); the far-shift clamped one
+    # (|dy| up to 1023) and the 999-column f64 Poisson operator the general
+    # one, timed in turns against its earlier design, which it must equal
+    # bit for bit
+    matmat_cases = [(f"sh_cyclic_{n1}_x8_f32", "sh", (n1, n1), 8, f32, True, "slab"),
+                    (f"sh_cyclic_{n2}_x8_f32", "sh", (n2, n2), 8, f32, True, "slab"),
+                    ("sh_cyclic_24_x3_f64", "sh", (24, 24), 3, f64, True, "slab"),
+                    (f"sh_clamped_{n1}_x8_f32", "sh", (n1, n1), 8, f32, False, "general"),
+                    (f"poisson_{npo}_x8_f64", "poisson", (npo, npo), 8, f64, False,
+                     "general")]
+    for case, kind, grid, nrhs, dtype, cyclic, path in matmat_cases:
+        m = operators.get(kind, grid[0])
         if not cyclic:
-            a = GridDIA.from_scipy(m.astype(np.float32), grid, device=dev)
+            a = GridDIA.from_scipy(m.astype(np.float32 if dtype == f32 else np.float64), grid,
+                                   device=dev)
         else:
             if grid not in cyclic64:
                 cyclic64[grid] = GridDIA.from_scipy(m, grid, cyclic=True, device=dev)
@@ -1032,23 +1048,48 @@ def spmv_kernel_rows(dev, operators):
         lib_a = library_csr(m, dtype, dev)
         xcols = x3.reshape(nrhs, -1).t().contiguous()   # (n, nrhs) for the library product
         extra = dict(path=path, cyclic=cyclic, max_abs_dy=max(abs(dy) for dy, _ in a.shifts))
-        in_turns_with_general = path == "slab"
+        if path == "general":
+            extra["general_path"] = spmv.matvec_path(a, x3)
+        earlier = spmv._matmat_general if path == "slab" else spmv._matmat_general_v1
         rows["grid_dia_matmat", case] = spmv_row(
             "grid_dia_matmat", case, a, grid, nrhs, lambda: spmv.grid_dia_matmat(a, x3),
             lambda: spmv._matmat_plain(a, x3), lambda: lib_a @ xcols, gate(dtype),
-            lib_view=lambda y: y.t(),
-            old=(lambda: spmv._matmat_general(a, x3)) if in_turns_with_general else None,
-            **extra)
+            lib_view=lambda y: y.t(), old=lambda: earlier(a, x3), **extra)
         rows["grid_dia_matmat_interleaved", case] = spmv_row(
             "grid_dia_matmat_interleaved", case, a, grid, nrhs,
             lambda: spmv.grid_dia_matmat_interleaved(a, xi),
             lambda: spmv._matmat_plain(a, x3).movedim(0, 1),
             lambda: lib_a @ xcols, gate(dtype),
             lib_view=lambda y: y.t().reshape((nrhs,) + grid).movedim(0, 1),
-            old=((lambda: spmv._matmat_general(a, xi, interleaved=True))
-                 if in_turns_with_general else None), **extra)
+            old=lambda: earlier(a, xi, interleaved=True), **extra)
+        if path == "general":
+            for kname in ("grid_dia_matmat", "grid_dia_matmat_interleaved"):
+                err_v1 = rows[kname, case]["err_vs_v1"]
+                check(err_v1 == 0.0, f"{kname} {case}: the general kernel is off its earlier "
+                                     f"design by {err_v1}, not bit for bit")
+        if case == f"sh_clamped_{n1}_x8_f32":
+            keep["far_x8"] = a
         del lib_a
     return rows, keep
+
+
+def chain_ms(kname: str, op, x0, chain: int) -> float:
+    """CUDA-event ms per launch of ``op`` applied to its own output
+    ``chain`` times after two warm-up calls (both buffers the chain
+    alternates between exist); the output must stay finite and nonzero."""
+    import torch
+
+    x = op(op(x0))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(chain):
+        x = op(x)
+    b.record()
+    b.synchronize()
+    check(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0,
+          f"{kname} chain: output not finite or all zero")
+    return a.elapsed_time(b) / chain
 
 
 def spmv_bench(dev, operators, a32, chain: int = 20, nrhs: int = 8):
@@ -1074,19 +1115,7 @@ def spmv_bench(dev, operators, a32, chain: int = 20, nrhs: int = 8):
                 x3.movedim(0, 1).contiguous())}
     torch.cuda.synchronize()
     spmv.reset_launches()
-    out = {}
-    for kname, (op, x0) in ops.items():
-        x = op(op(x0))  # warm-up: both buffers the chain alternates between exist
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(chain):
-            x = op(x)
-        b.record()
-        b.synchronize()
-        check(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0,
-              f"{kname} chain: output not finite or all zero")
-        out[kname] = a.elapsed_time(b) / chain
+    out = {kname: chain_ms(kname, op, x0, chain) for kname, (op, x0) in ops.items()}
     launches = {w.__name__: w.launches for w in spmv.WRAPPERS}
     check(all(v == chain + 2 for v in launches.values()),
           f"spmv bench launches {launches}, expected {chain + 2} each")
@@ -1101,6 +1130,39 @@ def spmv_bench(dev, operators, a32, chain: int = 20, nrhs: int = 8):
           "flat_diagonals": len(flat.offsets), "ms_per_launch": out, "launches": launches,
           "spmm_launches_by_path": by_path, "matvec_launches_by_path": mv_by_path})
     return launches, by_path
+
+
+def spmm_general_chain(dev, a_far, chain: int = 20, nrhs: int = 8):
+    """The general SpMM kernel's path: both SpMM layouts applied to their
+    own output ``chain`` times on the far-shift clamped SH container (33
+    stored fields, |dy| up to n - 1; |L| <= 0.5, so the chain stays
+    finite) at SP_N^2 x nrhs f32; CUDA-event ms per launch; launch counts
+    by path read around the chains."""
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.ops import spmv
+
+    n = SP_N
+    x3 = torch.tensor(np.random.default_rng(1).standard_normal((nrhs, n, n)),
+                      dtype=torch.float32, device=dev)
+    ops = {"grid_dia_matmat": (lambda v: spmv.grid_dia_matmat(a_far, v), x3),
+           "grid_dia_matmat_interleaved":
+               (lambda v: spmv.grid_dia_matmat_interleaved(a_far, v),
+                x3.movedim(0, 1).contiguous())}
+    for kname, (_, x0) in ops.items():
+        check(spmv.spmm_path(a_far, x0) == "general" and spmv.matvec_path(a_far, x0) == "vector",
+              f"{kname} general chain: path {spmv.spmm_path(a_far, x0)}, "
+              f"{spmv.matvec_path(a_far, x0)}")
+    torch.cuda.synchronize()
+    spmv.reset_launches()
+    out = {kname: chain_ms(kname, op, x0, chain) for kname, (op, x0) in ops.items()}
+    by_path = {w.__name__: dict(w.launches_by_path)
+               for w in (spmv.grid_dia_matmat, spmv.grid_dia_matmat_interleaved)}
+    check(all(v == {"slab": 0, "general": chain + 2} for v in by_path.values()),
+          f"general chain SpMM launches by path {by_path}: expected {chain + 2} general each")
+    emit({"phase": "spmm_general_chain", "n": n, "chain": chain, "nrhs": nrhs,
+          "fields": len(a_far.shifts), "ms_per_launch": out, "launches_by_path": by_path})
+    return {k: v["general"] for k, v in by_path.items()}
 
 
 def sh_sparse(dev, a64):
@@ -1312,11 +1374,13 @@ def small_models(dev):
 
 def sparse_phases(dev):
     """Phases 11-16: the explicit-sparse layer.  Returns the kernel rows,
-    the launches of the kernel-bench chains (and those of the SpMM ones by
-    path) and the launches by dtype of the Poisson main path."""
+    the launches of the kernel-bench chains (those of the SpMM ones by
+    path, and the general kernel's chains'), and the launches by dtype of
+    the Poisson main path."""
     operators = Operators()
     rows, keep = spmv_kernel_rows(dev, operators)
     bench_launches, bench_by_path = spmv_bench(dev, operators, keep[f"sh_cyclic_{SP_N2}_f32"])
+    general_launches = spmm_general_chain(dev, keep["far_x8"])
     sh_sparse(dev, keep[f"sh_cyclic_{SP_N2}_f64"])
     poisson_case = f"poisson_{POISSON_N - 1}_f64"
     main_launches = poisson999(dev, keep[poisson_case], keep["flat_" + poisson_case])
@@ -1324,7 +1388,7 @@ def sparse_phases(dev):
     small_models(dev)
     emit({"phase": "assembly", "seconds": operators.seconds,
           "total_seconds": sum(operators.seconds.values())})
-    return rows, (bench_launches, bench_by_path), main_launches
+    return rows, (bench_launches, bench_by_path, general_launches), main_launches
 
 
 def droplet_phases(dev):
@@ -2538,7 +2602,8 @@ def main() -> int:
     sh_launches = sh2048(dev)
 
     # -- 11-16. the explicit-sparse layer ----------------------------------------
-    sp_rows, (sp_bench_launches, sp_bench_by_path), sp_main_launches = sparse_phases(dev)
+    sp_rows, (sp_bench_launches, sp_bench_by_path, sp_general_launches), sp_main_launches = \
+        sparse_phases(dev)
 
     # -- 17-19. the droplet drivers and the headline bench --------------------------
     launches_evolve, inflated91 = droplet_driver_phases(dev, prepared)
@@ -2587,15 +2652,24 @@ def main() -> int:
 
     def spmm_entry(kname, pallas_call):
         """The slab kernel at the chain's shape, in turns against the general
-        one; the same at 1024^2, and the far-shift row that takes the
-        general kernel."""
+        one; the same at 1024^2; and the general kernel's two rows, the
+        far-shift container (its vector path) and the 999^2 f64 Poisson
+        operator (its scalar path), each in turns against its earlier
+        design.  Launches: the kernel bench's chain (slab) and the general
+        kernel's chain."""
         more = {k: sp_rows[kname, spmm_case][k] for k in versus + ("path",)}
         small = sp_rows[kname, f"sh_cyclic_{SP_N}_x8_f32"]
-        far = sp_rows[kname, f"sh_clamped_{SP_N}_x8_f32"]
-        return spmv_entry(kname, spmm_case, sp_bench_launches[kname], pallas_call, **more,
-                          launches_by_path=sp_bench_by_path[kname],
+        general = {label: {k: sp_rows[kname, case][k]
+                           for k in numbers + versus + ("path", "general_path", "err_vs_v1")}
+                   for label, case in (("far_shift_1024", f"sh_clamped_{SP_N}_x8_f32"),
+                                       ("odd_width_999", f"poisson_{POISSON_N - 1}_x8_f64"))}
+        return spmv_entry(kname, spmm_case,
+                          sp_bench_launches[kname] + sp_general_launches[kname], pallas_call,
+                          **more,
+                          launches_by_path={"slab": sp_bench_by_path[kname]["slab"],
+                                            "general": sp_general_launches[kname]},
                           at_1024={k: small[k] for k in numbers + versus + ("path",)},
-                          far_shift_1024={k: far[k] for k in numbers + ("path",)})
+                          **general)
 
     def total(kname):
         return sum(sp_main_launches[kname].values())
@@ -2635,16 +2709,14 @@ def main() -> int:
          "streaming_4096": {k: rows["sh_operator", "4096x4096_f32"][k]
                             for k in numbers + versus + ("path",)}},
         # rows 4 and 5 at the Poisson main path's shape, with its launches (row 4
-        # in turns against its earlier design, with its far-shift and streaming
-        # rows); the two SpMM layouts, which only the kernel bench reaches, with
-        # the chain's
+        # with its far-shift and streaming rows); the two SpMM layouts, which
+        # only the kernel bench reaches, with the chains'
         spmv_entry("grid_dia_matvec", poisson_case, total("grid_dia_matvec"), 130,
                    launches_by_dtype=sp_main_launches["grid_dia_matvec"],
                    bench_launches=sp_bench_launches["grid_dia_matvec"],
-                   **{k: sp_rows["grid_dia_matvec", poisson_case][k]
-                      for k in versus + ("path", "err_vs_v1")},
+                   path=sp_rows["grid_dia_matvec", poisson_case]["path"],
                    **{label: {k: sp_rows["grid_dia_matvec", case][k]
-                              for k in numbers + versus + ("path", "err_vs_v1")}
+                              for k in numbers + ("path",)}
                       for label, case in (("far_shift_1024", f"sh_clamped_{SP_N}_f32"),
                                           ("streaming_4096", f"dirichlet_{SP_N4}_f32"),
                                           ("cyclic_2048", f"sh_cyclic_{SP_N2}_f32"))}),

@@ -53,35 +53,49 @@
 // read-only path.  Each point sums its live terms in table order, each
 // product fused into one FMA; a dropped term or an untaken point adds
 // d = 0 times x = 0, exactly nothing (the sum is never -0), so the kernel
-// equals the earlier one bit for bit.  Lists longer than one chunk of 256
-// terms are built and walked a chunk at a time.  That earlier kernel stays
-// as grid_dia_matvec_v1 for timing in turns.
-//
-// The SpMM's "general" kernel is one thread per output point, neighbouring
-// threads on neighbouring columns, so every coefficient load is coalesced
-// and is the only read of its address; the shifted reads of x overlap
-// between threads and are served by L1/L2 through the read-only path; all
-// threads of a warp read the same table entry (one broadcast load).  It
-// keeps a register tile of 8 right-hand sides per thread and reads each
-// coefficient once per tile (once per point for nrhs <= 8); the two
-// layouts differ only in the strides of x and y.
+// equals the earlier one-thread-a-point kernel bit for bit.  Lists longer
+// than one chunk of 256 terms are built and walked a chunk at a time.
 //
 // The SpMM has two kernels, chosen by the wrapper from shape, term table
-// and address alone (ops/spmv.py::spmm_path).  The one above is the
-// "general" path: any container, any shape.  The row-slab kernel below
+// and address alone (ops/spmv.py::spmm_path).  The "general" one takes any
+// container and any shape (far shifts, odd widths, unaligned stacks,
+// stages too large for shared memory); the row-slab kernel below
 // (grid_dia_matmat_slab, the "slab" path) takes containers whose signed
 // reach fits its halo (|dy| <= 8, |dx| <= one 16-byte vector; cyclic
 // shifts taken in (-n/2, n/2]) on rows of whole, aligned 16-byte vectors,
-// in both layouts.  It replaces grid_dia_matmat_pallas (:301, pallas_call
-// :279) and grid_dia_matmat_interleaved_pallas (:335, :462) for those,
-// which is where the kernel bench and block Krylov callers live.
+// in both layouts.  Both replace grid_dia_matmat_pallas (:301,
+// pallas_call :279) and grid_dia_matmat_interleaved_pallas (:335, :462);
+// the two layouts differ only in the strides of x and y.
 //
-// What bounds it: bytes, (nterms + 2 nrhs) fields (486.5 MB at 2048^2 x 8
-// f32 with 13 terms: 0.145 ms over 3.35 TB/s).  What held the general
-// kernel at half of that: a warp waits one device-memory round trip per
-// term (three dependent table loads, a branch, then its loads), with at
-// most one coefficient load in flight per thread.  The slab kernel follows
-// the TPU kernel's slab pipeline instead: a block owns a strip of W columns
+// The general SpMM (grid_dia_matmat_tiled) takes the tiled SpMV's
+// per-block live-term list (one device function, build_live_list, builds
+// it for both) to a stack.  A block owns a tile of 8 rows x 64 f32 / 32 f64
+// columns, a thread 2 f32 or 1 f64 points of a row 32 columns apart for a
+// register tile of up to 8 right-hand sides; each live term's coefficient
+// is loaded once a point for all of them, the loads of 4 f32 / 8 f64 terms
+// issued together before their multiply-adds.  x is staged once a register
+// tile in a shared-memory window (the tile with 2 rows and one 16-byte
+// vector of columns each side, for the 8 right-hand sides: 27 KB f32) by
+// cp.async, as 16-byte vectors on the vector path (rows of whole, aligned
+// vectors) and element by element on the scalar one (odd widths such as
+// 999 f64, unaligned stacks), and every whole term within that reach reads
+// it there, a warp 32 neighbouring words of a row: no bank conflict at any
+// shift.  Far and partial terms read x through L1.  Each point sums its
+// live terms in table order, one FMA a term a right-hand side, as the
+// one-thread-a-point kernel of the earlier design (grid_dia_matmat_v1,
+// kept for timing in turns) does with its contracted `acc += d * x`: the
+// two are equal bit for bit.  What held that kernel at a third of its bound
+// on the far-shift container: every point walked all 33 terms and tested
+// each source, 20 of them on average outside the grid.  Measured on the
+// way and dropped, each slower on the far-shift container: 16-byte slots
+// with x read through L1 as pairs of aligned vectors; the coefficients of
+// the list staged in shared memory too; the next group's coefficient
+// loads issued a group ahead; x through L1 with no window (still a
+// variant of tools/tune_port_kernels.py general).
+
+// What bounds the SpMM: bytes, (nterms + 2 nrhs) fields (486.5 MB at 2048^2
+// x 8 f32 with 13 terms: 0.145 ms over 3.35 TB/s).  The slab kernel follows
+// the TPU kernel's slab pipeline: a block owns a strip of W columns
 // and marches down a segment of rows in slabs of B rows; per slab it copies
 // the coefficient chunk (nterms x B x W) and the x slab with its halo
 // (nrhs x (B + 2 HY) x (W + 2 vectors), HY = 2 or 8 staged halo rows) into
@@ -133,31 +147,6 @@ __device__ __forceinline__ bool shifted(int i, int d, int n, int& src) {
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
-// The SpMV of the earlier design, one thread a point (grid_dia_matvec_v1).
-template <class T, bool CYCLIC>
-__global__ void grid_dia_matvec_v1_kernel(const T* __restrict__ data,
-                                       const int* __restrict__ terms, int nterms,
-                                       const T* __restrict__ x, T* __restrict__ y,
-                                       int ny, int nx) {
-  const int c = blockIdx.x * kBX + threadIdx.x;
-  const int r = blockIdx.y * kBY + threadIdx.y;
-  if (r >= ny || c >= nx) return;
-  const size_t field = static_cast<size_t>(ny) * nx;
-  const size_t here = static_cast<size_t>(r) * nx + c;
-  T acc = T(0);
-  for (int t = 0; t < nterms; ++t) {
-    const int k = __ldg(terms + 3 * t);
-    const int dy = __ldg(terms + 3 * t + 1);
-    const int dx = __ldg(terms + 3 * t + 2);
-    int rr, cc;
-    if (shifted<CYCLIC>(r, dy, ny, rr) && shifted<CYCLIC>(c, dx, nx, cc)) {
-      acc += __ldg(data + static_cast<size_t>(k) * field + here)
-             * __ldg(x + static_cast<size_t>(rr) * nx + cc);
-    }
-  }
-  y[here] = acc;
-}
-
 template <class T>
 __global__ void dia_flat_matvec_kernel(const T* __restrict__ data,
                                        const int* __restrict__ terms, int nterms,
@@ -174,10 +163,12 @@ __global__ void dia_flat_matvec_kernel(const T* __restrict__ data,
   y[i] = acc;
 }
 
-// One output point of the SpMM for every right-hand side.  Element
+// The general SpMM of the earlier design (grid_dia_matmat_v1), kept for
+// timing in turns: one thread a point, every term of the table tested at
+// every point.  One output point for every right-hand side; element
 // (j, r, c) of x and y lies at j * rhs_stride + r * row_stride + c.
 template <class T, bool CYCLIC>
-__device__ __forceinline__ void grid_dia_matmat_point(
+__device__ __forceinline__ void grid_dia_matmat_v1_point(
     const T* __restrict__ data, const int* __restrict__ terms, int nterms,
     const T* __restrict__ x, T* __restrict__ y, int nrhs, int ny, int nx,
     size_t rhs_stride, size_t row_stride) {
@@ -215,23 +206,23 @@ __device__ __forceinline__ void grid_dia_matmat_point(
 
 // x, y: (nrhs, ny, nx)
 template <class T, bool CYCLIC>
-__global__ void grid_dia_matmat_kernel(const T* __restrict__ data,
-                                       const int* __restrict__ terms, int nterms,
-                                       const T* __restrict__ x, T* __restrict__ y,
-                                       int nrhs, int ny, int nx) {
-  grid_dia_matmat_point<T, CYCLIC>(data, terms, nterms, x, y, nrhs, ny, nx,
-                                   static_cast<size_t>(ny) * nx,
-                                   static_cast<size_t>(nx));
+__global__ void grid_dia_matmat_v1_kernel(const T* __restrict__ data,
+                                          const int* __restrict__ terms, int nterms,
+                                          const T* __restrict__ x, T* __restrict__ y,
+                                          int nrhs, int ny, int nx) {
+  grid_dia_matmat_v1_point<T, CYCLIC>(data, terms, nterms, x, y, nrhs, ny, nx,
+                                      static_cast<size_t>(ny) * nx,
+                                      static_cast<size_t>(nx));
 }
 
 // x, y: (ny, nrhs, nx)
 template <class T, bool CYCLIC>
-__global__ void grid_dia_matmat_interleaved_kernel(
+__global__ void grid_dia_matmat_v1_interleaved_kernel(
     const T* __restrict__ data, const int* __restrict__ terms, int nterms,
     const T* __restrict__ x, T* __restrict__ y, int nrhs, int ny, int nx) {
-  grid_dia_matmat_point<T, CYCLIC>(data, terms, nterms, x, y, nrhs, ny, nx,
-                                   static_cast<size_t>(nx),
-                                   static_cast<size_t>(nrhs) * nx);
+  grid_dia_matmat_v1_point<T, CYCLIC>(data, terms, nterms, x, y, nrhs, ny, nx,
+                                      static_cast<size_t>(nx),
+                                      static_cast<size_t>(nrhs) * nx);
 }
 
 bool grid_launch_shape(int ny, int nx, dim3* grid) {
@@ -240,36 +231,17 @@ bool grid_launch_shape(int ny, int nx, dim3* grid) {
   return grid->y <= kMaxGridY;
 }
 
-template <class T>
-int launch_grid_matvec_v1(const T* data, const int* terms, int nterms, int cyclic,
-                          const T* x, T* y, int ny, int nx, void* stream) {
-  dim3 grid;
-  if (nterms < 0 || !grid_launch_shape(ny, nx, &grid)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 block(kBX, kBY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cyclic) {
-    grid_dia_matvec_v1_kernel<T, true><<<grid, block, 0, s>>>(data, terms, nterms, x, y, ny,
-                                                              nx);
-  } else {
-    grid_dia_matvec_v1_kernel<T, false><<<grid, block, 0, s>>>(data, terms, nterms, x, y, ny,
-                                                               nx);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+// ---- per-block live-term lists: the tiled SpMV and the tiled SpMM ----------------
 
-// ---- the tiled SpMV with per-block live-term lists ---------------------------------
-
-constexpr int kMvThreads = 256;        // a block: 8 warps
-constexpr int kMvChunk = kMvThreads;   // terms classified a pass, one a thread
+constexpr int kTileThreads = 256;          // a block: 8 warps
+constexpr int kTileChunk = kTileThreads;   // terms classified a pass, one a thread
 
 // A term as one block sees it: its coefficient field, and either the flat
 // offset of its sources (whole) or the shift each point tests (partial).
 struct LiveTerm {
   long long coef;  // k * ny * nx: the field's first element
-  long long xoff;  // whole: dy * nx + dx, after the wrap of a cyclic axis
-  int dy, dx;      // partial: the table's shift
+  long long xoff;  // whole: dy * (x's row stride) + dx, after the wrap of a cyclic axis
+  int dy, dx;      // the shift: the table's (partial), the one that reaches the sources (whole)
   int whole;
 };
 
@@ -293,11 +265,59 @@ __device__ __forceinline__ int axis_kind(int lo, int hi, int d, int n, int* eff)
   }
 }
 
-// One tiling of the tiled SpMV: TX of the block's threads lie along a row;
-// a thread takes NV slots along a row (TX * V columns apart) of RPT rows
-// (kMvThreads / TX rows apart); a slot is one 16-byte vector (VEC: rows of
-// whole, aligned vectors) or one point; the loads of U terms are issued
-// before their multiply-adds; MINB resident blocks an SM cap the
+// The live list of the tile of rows [r0, r1) and columns [c0, c1) for the
+// chunk of terms [t0, t0 + kTileChunk) of the table, in table order, in
+// s_list; returns its length.  Each thread classifies one term; a warp's
+// live terms are compacted by a ballot, the warps' by their counts in
+// s_live.  xrow is x's row stride (nx for the SpMV and the stacked SpMM,
+// nrhs * nx interleaved).  all_partial (a probe) keeps every term, each
+// tested per point.  Two barriers: the list is complete for every thread
+// on return, and a caller may build again with no barrier of its own: the
+// new list is written only past the first barrier, which every thread
+// reaches only once it is done with the last list (s_live is read only
+// between the last build's two barriers).
+template <bool CYCLIC>
+__device__ __forceinline__ int build_live_list(const int* __restrict__ terms, int nterms,
+                                               int t0, int r0, int r1, int c0, int c1,
+                                               int ny, int nx, long long xrow, bool all_partial,
+                                               LiveTerm* s_list, int* s_live) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = t0 + tid;
+  int kind = 0;
+  LiveTerm e{};
+  if (t < nterms) {
+    const int k = terms[3 * t], dy = terms[3 * t + 1], dx = terms[3 * t + 2];
+    int ey, ex;
+    const int ky = axis_kind<CYCLIC>(r0, r1 - 1, dy, ny, &ey);
+    const int kx = axis_kind<CYCLIC>(c0, c1 - 1, dx, nx, &ex);
+    kind = (ky == 0 || kx == 0) ? 0 : (ky == 1 && kx == 1 ? 1 : 2);
+    if (all_partial) kind = 2;
+    e.coef = k * (static_cast<long long>(ny) * nx);
+    e.xoff = ey * xrow + ex;
+    e.dy = kind == 1 ? ey : dy;
+    e.dx = kind == 1 ? ex : dx;
+    e.whole = kind == 1;
+  }
+  const unsigned live = __ballot_sync(0xffffffffu, kind != 0);
+  if (lane == 0) s_live[warp] = __popc(live);
+  __syncthreads();
+  int at = 0, n = 0;
+#pragma unroll
+  for (int w = 0; w < kTileThreads / 32; ++w) {
+    const int c = s_live[w];
+    at += w < warp ? c : 0;
+    n += c;
+  }
+  if (kind != 0) s_list[at + __popc(live & ((1u << lane) - 1u))] = e;
+  __syncthreads();
+  return n;
+}
+
+// One tiling of the tiled kernels: TX of the block's threads lie along a
+// row; a thread takes NV slots along a row (TX * V columns apart) of RPT
+// rows (kTileThreads / TX rows apart); a slot is one 16-byte vector (VEC:
+// rows of whole, aligned vectors) or one point; the loads of U terms are
+// issued before their multiply-adds; MINB resident blocks an SM cap the
 // registers (1: no cap).
 template <class T, bool VEC, int NV, int RPT, int U, int TX_ = 32, int MINB_ = 1>
 struct MvTiling {
@@ -306,9 +326,9 @@ struct MvTiling {
   static constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;  // points a slot
   static constexpr int NS = NV, R = RPT, UN = U, TX = TX_, MINB = MINB_;
   static constexpr int P = NV * V;                 // points a thread along a row
-  static constexpr int TY = kMvThreads / TX;
+  static constexpr int TY = kTileThreads / TX;
   static constexpr int W = TX * P, H = TY * RPT;   // the block's tile
-  static_assert(kMvThreads % TX == 0 && TX % 32 == 0, "whole warps along a row");
+  static_assert(kTileThreads % TX == 0 && TX % 32 == 0, "whole warps along a row");
 };
 
 __device__ __forceinline__ void load16(const float* p, float* v) {
@@ -345,21 +365,20 @@ __device__ __forceinline__ double mix_bits(double a, double d, double x) {
 }
 
 template <class G, bool CYCLIC, int PROBE>
-__global__ void __launch_bounds__(kMvThreads, G::MINB)
+__global__ void __launch_bounds__(kTileThreads, G::MINB)
 grid_dia_matvec_tiled_kernel(const typename G::Type* __restrict__ data,
                              const int* __restrict__ terms, int nterms,
                              const typename G::Type* __restrict__ x,
                              typename G::Type* __restrict__ y, int ny, int nx) {
   using T = typename G::Type;
   constexpr int V = G::V, NS = G::NS, P = G::P, R = G::R, U = G::UN;
-  __shared__ LiveTerm s_list[kMvChunk];
-  __shared__ int s_live[kMvThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ LiveTerm s_list[kTileChunk];
+  __shared__ int s_live[kTileThreads / 32];
+  const int tid = threadIdx.x;
   const int tx = tid % G::TX, ty = tid / G::TX;
   // the tile's grid points: rows [r0, r1), columns [c0, c1)
   const int r0 = blockIdx.y * G::H, c0 = blockIdx.x * G::W;
   const int r1 = min(r0 + G::H, ny), c1 = min(c0 + G::W, nx);
-  const long long field = static_cast<long long>(ny) * nx;
 
   // the thread's points: row[q] x (col[m] .. col[m] + V - 1), slot m at
   // flat index base[q] + m * TX * V; a slot lies in the grid whole or not
@@ -384,38 +403,9 @@ grid_dia_matvec_tiled_kernel(const typename G::Type* __restrict__ data,
 #pragma unroll
     for (int p = 0; p < P; ++p) acc[q][p] = T(0);
 
-  for (int t0 = 0; t0 < nterms; t0 += kMvChunk) {
-    // classify the chunk's terms for the tile, one a thread, and keep the
-    // live ones in table order
-    const int t = t0 + tid;
-    int kind = 0;
-    LiveTerm e{};
-    if (t < nterms) {
-      const int k = terms[3 * t], dy = terms[3 * t + 1], dx = terms[3 * t + 2];
-      int ey, ex;
-      const int ky = axis_kind<CYCLIC>(r0, r1 - 1, dy, ny, &ey);
-      const int kx = axis_kind<CYCLIC>(c0, c1 - 1, dx, nx, &ex);
-      kind = (ky == 0 || kx == 0) ? 0 : (ky == 1 && kx == 1 ? 1 : 2);
-      if (PROBE == kMvNoList) kind = 2;
-      e.coef = k * field;
-      e.xoff = static_cast<long long>(ey) * nx + ex;
-      e.dy = dy;
-      e.dx = dx;
-      e.whole = kind == 1;
-    }
-    const unsigned live = __ballot_sync(0xffffffffu, kind != 0);
-    if (lane == 0) s_live[warp] = __popc(live);
-    __syncthreads();
-    int at = 0, n = 0;
-#pragma unroll
-    for (int w = 0; w < kMvThreads / 32; ++w) {
-      const int c = s_live[w];
-      at += w < warp ? c : 0;
-      n += c;
-    }
-    if (kind != 0) s_list[at + __popc(live & ((1u << lane) - 1u))] = e;
-    __syncthreads();
-
+  for (int t0 = 0; t0 < nterms; t0 += kTileChunk) {
+    const int n = build_live_list<CYCLIC>(terms, nterms, t0, r0, r1, c0, c1, ny, nx, nx,
+                                          PROBE == kMvNoList, s_list, s_live);
     for (int e0 = 0; e0 < n; e0 += U) {
       // the loads of U terms, then their multiply-adds in table order; a
       // term past the list or a point it does not reach keeps d = x = 0
@@ -485,7 +475,6 @@ grid_dia_matvec_tiled_kernel(const typename G::Type* __restrict__ data,
                                                : fma_rn(d[u][q][p], xv[u][q][p], acc[q][p]);
           }
     }
-    __syncthreads();  // every thread is done with the list before the next chunk's
   }
 
 #pragma unroll
@@ -517,7 +506,7 @@ int launch_mv(const typename G::Type* data, const int* terms, int nterms,
   }
   grid_dia_matvec_tiled_kernel<G, CYCLIC, PROBE>
       <<<dim3(static_cast<unsigned>((nx + G::W - 1) / G::W), static_cast<unsigned>(tiles_y)),
-         kMvThreads, 0, s>>>(data, terms, nterms, x, y, ny, nx);
+         kTileThreads, 0, s>>>(data, terms, nterms, x, y, ny, nx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,10 +549,11 @@ int launch_flat_matvec(const T* data, const int* terms, int nterms, const T* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch the general SpMM of the earlier design (grid_dia_matmat_v1).
 template <class T>
-int launch_grid_matmat(const T* data, const int* terms, int nterms, int cyclic,
-                       int interleaved, const T* x, T* y, int nrhs, int ny, int nx,
-                       void* stream) {
+int launch_grid_matmat_v1(const T* data, const int* terms, int nterms, int cyclic,
+                          int interleaved, const T* x, T* y, int nrhs, int ny, int nx,
+                          void* stream) {
   dim3 grid;
   if (nterms < 0 || nrhs < 1 || !grid_launch_shape(ny, nx, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -572,20 +562,308 @@ int launch_grid_matmat(const T* data, const int* terms, int nterms, int cyclic,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (interleaved) {
     if (cyclic) {
-      grid_dia_matmat_interleaved_kernel<T, true><<<grid, block, 0, s>>>(
+      grid_dia_matmat_v1_interleaved_kernel<T, true><<<grid, block, 0, s>>>(
           data, terms, nterms, x, y, nrhs, ny, nx);
     } else {
-      grid_dia_matmat_interleaved_kernel<T, false><<<grid, block, 0, s>>>(
+      grid_dia_matmat_v1_interleaved_kernel<T, false><<<grid, block, 0, s>>>(
           data, terms, nterms, x, y, nrhs, ny, nx);
     }
   } else if (cyclic) {
-    grid_dia_matmat_kernel<T, true><<<grid, block, 0, s>>>(
+    grid_dia_matmat_v1_kernel<T, true><<<grid, block, 0, s>>>(
         data, terms, nterms, x, y, nrhs, ny, nx);
   } else {
-    grid_dia_matmat_kernel<T, false><<<grid, block, 0, s>>>(
+    grid_dia_matmat_v1_kernel<T, false><<<grid, block, 0, s>>>(
         data, terms, nterms, x, y, nrhs, ny, nx);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- cp.async: copies from global to shared memory ------------------------------
+
+// 16 bytes from global to shared memory, asynchronously, past L1; with fill
+// false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(fill ? 16 : 0) : "memory");
+}
+
+// One element (4 or 8 bytes) from global to shared memory, asynchronously.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(BYTES) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- the tiled SpMM: the general path ------------------------------------------
+
+// One tiling of the tiled SpMM: 32 threads along a row, a thread NV points
+// of one row 32 columns apart (tiles of 8 rows x 32 NV columns), a register
+// tile of J right-hand sides (at most kRhsTile), the
+// coefficient loads of U terms issued together, MINB resident blocks an SM
+// capping the registers, and with HY > 0 a window of x in shared memory:
+// the tile's rows with HY rows and its columns with one 16-byte vector (HX
+// elements) each side, for the J right-hand sides, copied once a register
+// tile with cp.async (as 16-byte vectors with CPV, where the rows are
+// whole, aligned vectors; else element by element) and read there by
+// every whole term whose shift lies within that reach; x of every other
+// term (and, HY = 0, of all) is read through L1.
+template <class T, int NV, int U, int J_, int MINB_, int HY_, bool CPV_ = false>
+struct MmTiling : MvTiling<T, false, NV, 1, U, 32, MINB_> {
+  using Base = MvTiling<T, false, NV, 1, U, 32, MINB_>;
+  static constexpr int J = J_, HY = HY_;
+  static constexpr bool kCopyVec = CPV_;
+  static constexpr int VB = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte vector
+  static constexpr int HX = HY_ > 0 ? VB : 0;
+  static constexpr int WR = Base::H + 2 * HY, WP = Base::W + 2 * HX;  // window rows, pitch
+  static constexpr size_t kWindowBytes = HY_ > 0 ? sizeof(T) * J * WR * WP : 0;
+  static_assert(J >= 1 && J <= kRhsTile, "a register tile of at most kRhsTile right-hand sides");
+};
+
+// Issue the copies of the x window of the register tile at rhs j0 (nj
+// right-hand sides) for the tile at (r0, c0): only elements inside the
+// grid (a whole term reads no other).
+template <class G>
+__device__ __forceinline__ void copy_window(typename G::Type* win,
+                                            const typename G::Type* __restrict__ x, int j0,
+                                            int nj, int r0, int c0, int ny, int nx, long long rs,
+                                            long long ws) {
+  constexpr int VB = G::kCopyVec ? G::VB : 1;  // elements a copy
+  constexpr int per_row = G::WP / VB;
+  const int total = nj * G::WR * per_row;
+  for (int e = threadIdx.x; e < total; e += kTileThreads) {
+    const int v = e % per_row, wr = (e / per_row) % G::WR, j = e / (per_row * G::WR);
+    const int gr = r0 - G::HY + wr, gc = c0 - G::HX + v * VB;
+    if (gr < 0 || gr >= ny || gc < 0 || gc >= nx) continue;
+    typename G::Type* dst = win + (j * G::WR + wr) * G::WP + v * VB;
+    const typename G::Type* src = x + ((j0 + j) * rs + static_cast<long long>(gr) * ws + gc);
+    if constexpr (G::kCopyVec) {
+      cp_async16(dst, src, true);
+    } else {
+      cp_async_elem<sizeof(typename G::Type)>(dst, src);
+    }
+  }
+  cp_async_commit();
+}
+
+// Element (j, r, c) of x and y lies at j * rs + r * ws + c: (nrhs, ny, nx)
+// has rs = ny * nx, ws = nx; (ny, nrhs, nx) rs = nx, ws = nrhs * nx.
+// Probes as the tiled SpMV's (MvProbe); coefficients alone copies no
+// window.
+template <class G, bool CYCLIC, int PROBE>
+__global__ void __launch_bounds__(kTileThreads, G::MINB)
+grid_dia_matmat_tiled_kernel(const typename G::Type* __restrict__ data,
+                             const int* __restrict__ terms, int nterms,
+                             const typename G::Type* __restrict__ x,
+                             typename G::Type* __restrict__ y, int nrhs, int ny, int nx,
+                             long long rs, long long ws) {
+  using T = typename G::Type;
+  constexpr int NS = G::NS, U = G::UN, J = G::J, TX = G::TX;
+  __shared__ LiveTerm s_list[kTileChunk];
+  __shared__ int s_live[kTileThreads / 32];
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  T* win = reinterpret_cast<T*>(mm_smem);  // the x window (G::HY > 0)
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  // the tile's grid points: rows [r0, r1), columns [c0, c1)
+  const int r0 = blockIdx.y * G::H, c0 = blockIdx.x * G::W;
+  const int r1 = min(r0 + G::H, ny), c1 = min(c0 + G::W, nx);
+
+  // the thread's points: (row, col[m]); point m's coefficient lies at
+  // cbase + m * TX of a field, its x and y at xbase + m * TX of rhs 0, its
+  // window cell at wbase + m * TX
+  const int row = r0 + ty;
+  int col[NS];
+  bool ok[NS];
+#pragma unroll
+  for (int m = 0; m < NS; ++m) {
+    col[m] = c0 + m * TX + tx;
+    ok[m] = row < ny && col[m] < nx;
+  }
+  const long long cbase = static_cast<long long>(row) * nx + c0 + tx;
+  const long long xbase = static_cast<long long>(row) * ws + c0 + tx;
+  const int wbase = (ty + G::HY) * G::WP + G::HX + tx;
+
+  int n = 0;  // the list's length (one chunk: built once, for the first rhs tile)
+  for (int j0 = 0; j0 < nrhs; j0 += J) {
+    const int nj = min(J, nrhs - j0);
+    const T* xj = x + j0 * rs;
+    // the rhs tile's window has landed for every thread: waited for before
+    // the first group of live terms, in whichever chunk of the table that
+    // falls (block-uniform: the list's length is)
+    bool waited = G::HY == 0;
+    if constexpr (G::HY > 0) {
+      if (j0 > 0) __syncthreads();  // every thread is done with the last window
+      if (PROBE != kMvCoefAlone) copy_window<G>(win, x, j0, nj, r0, c0, ny, nx, rs, ws);
+    }
+    T acc[J][NS];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int m = 0; m < NS; ++m) acc[j][m] = T(0);
+
+    for (int t0 = 0; t0 < nterms; t0 += kTileChunk) {
+      if (j0 == 0 || nterms > kTileChunk) {
+        n = build_live_list<CYCLIC>(terms, nterms, t0, r0, r1, c0, c1, ny, nx, ws,
+                                    PROBE == kMvNoList, s_list, s_live);
+      }
+      for (int e0 = 0; e0 < n; e0 += U) {
+        // the coefficients of U terms, loaded together, each once for the J
+        // right-hand sides; a term past the list or a point it does not
+        // reach has d = 0 (and x = 0 below)
+        T d[U][NS];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int m = 0; m < NS; ++m) d[u][m] = T(0);
+          if (e0 + u >= n) continue;
+          const LiveTerm lt = s_list[e0 + u];
+#pragma unroll
+          for (int m = 0; m < NS; ++m) {
+            int rr, cc;
+            if (!ok[m] || (!lt.whole && (!shifted<CYCLIC>(row, lt.dy, ny, rr)
+                                         || !shifted<CYCLIC>(col[m], lt.dx, nx, cc)))) {
+              continue;
+            }
+            d[u][m] = PROBE == kMvXAlone ? T(1) : __ldcg(data + (lt.coef + cbase + m * TX));
+          }
+        }
+        if constexpr (G::HY > 0) {
+          if (!waited) {
+            cp_async_wait<0>();
+            __syncthreads();
+            waited = true;
+          }
+        }
+        // term by term in table order: x from the window or from global
+        // memory into the multiply-adds
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (e0 + u >= n) break;
+          const LiveTerm lt = s_list[e0 + u];
+          T xv[J][NS];
+          if (G::HY > 0 && lt.whole && abs(lt.dy) <= G::HY && abs(lt.dx) <= G::HX) {
+            const T* w = win + (wbase + lt.dy * G::WP + lt.dx);
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+#pragma unroll
+              for (int m = 0; m < NS; ++m) {
+                xv[j][m] = PROBE == kMvCoefAlone ? T(1) : w[j * (G::WR * G::WP) + m * TX];
+              }
+          } else {
+#pragma unroll
+            for (int m = 0; m < NS; ++m) {
+              int rr = row + lt.dy, cc = col[m] + lt.dx;  // whole: the shift that reaches them
+              const bool in = ok[m] && (lt.whole || (shifted<CYCLIC>(row, lt.dy, ny, rr)
+                                                     && shifted<CYCLIC>(col[m], lt.dx, nx, cc)));
+              const T* xs = xj + (static_cast<long long>(rr) * ws + cc);
+#pragma unroll
+              for (int j = 0; j < J; ++j) {
+                xv[j][m] = !in || j >= nj ? T(0)
+                           : PROBE == kMvCoefAlone ? T(1) : __ldg(xs + j * rs);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+#pragma unroll
+            for (int m = 0; m < NS; ++m) {
+              acc[j][m] = PROBE == kMvLoadsAlone ? mix_bits(acc[j][m], d[u][m], xv[j][m])
+                                                 : fma_rn(d[u][m], xv[j][m], acc[j][m]);
+            }
+        }
+      }
+    }
+    if constexpr (G::HY > 0) {
+      // no live term: the copies land before the next rhs tile's overwrite them
+      if (!waited) cp_async_wait<0>();
+    }
+
+    T* yj = y + j0 * rs;
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+      if (!ok[m]) continue;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (j < nj) yj[xbase + j * rs + m * TX] = acc[j][m];
+      }
+    }
+  }
+}
+
+// Launch the tiled SpMM of tiling G on either layout (interleaved 0:
+// (nrhs, ny, nx), 1: (ny, nrhs, nx)).  Returns cudaErrorInvalidValue for
+// what it does not take: a vector tiling (or vector copies of the window)
+// on rows that are not whole, aligned 16-byte vectors, or a grid past
+// 65535 tiles of rows.
+template <class G, bool CYCLIC, int PROBE = kMvKernel>
+int launch_mm(const typename G::Type* data, const int* terms, int nterms,
+              const typename G::Type* x, typename G::Type* y, int nrhs, int ny, int nx,
+              int interleaved, cudaStream_t s) {
+  const auto misaligned = (reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(x)
+                           | reinterpret_cast<uintptr_t>(y)) % 16;
+  const long long tiles_y = (static_cast<long long>(ny) + G::H - 1) / G::H;
+  if (nterms < 0 || nrhs < 1 || ny < 1 || nx < 1 || tiles_y > static_cast<long long>(kMaxGridY)
+      || (G::kCopyVec && (nx % G::VB || misaligned))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = grid_dia_matmat_tiled_kernel<G, CYCLIC, PROBE>;
+  // past 48 KB of shared memory a block (the tuning script's wider
+  // tilings; the chosen ones take 36 KB) the kernel must be allowed, once
+  constexpr size_t kStaticBytes =
+      sizeof(LiveTerm) * kTileChunk + sizeof(int) * (kTileThreads / 32);
+  if constexpr (G::kWindowBytes + kStaticBytes > 48 * 1024) {
+    static int allowed_on = -1;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess && device != allowed_on) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(G::kWindowBytes));
+      if (err == cudaSuccess) allowed_on = device;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long rs = interleaved ? nx : static_cast<long long>(ny) * nx;
+  const long long ws = interleaved ? static_cast<long long>(nrhs) * nx : nx;
+  kernel<<<dim3(static_cast<unsigned>((nx + G::W - 1) / G::W), static_cast<unsigned>(tiles_y)),
+           kTileThreads, G::kWindowBytes, s>>>(data, terms, nterms, x, y, nrhs, ny, nx, rs, ws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chosen tilings (tools/tune_port_kernels.py general): 32 threads
+// along a row, a register tile of 8 right-hand sides, the x window with 2
+// rows each side, registers capped for 4 blocks an SM (64, no spill); in
+// f32 2 points a thread (tiles of 8 x 64), the coefficient loads of 4 terms
+// issued together; in f64 1 point a thread (tiles of 8 x 32), the loads of
+// 8 terms.  The vector path
+// copies the window as 16-byte vectors, the scalar path element by
+// element.  Mirrored in ops/spmv.py (_MM_ROWS, _MM_COLS, _MM_RHS_TILE).
+template <class T, bool VEC>
+using MmOf = MmTiling<T, sizeof(T) == 4 ? 2 : 1, sizeof(T) == 4 ? 4 : 8, kRhsTile, 4, 2, VEC>;
+
+template <class T>
+int launch_grid_matmat(const T* data, const int* terms, int nterms, int cyclic, int vec,
+                       int interleaved, const T* x, T* y, int nrhs, int ny, int nx,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    using G = MmOf<T, true>;
+    return cyclic ? launch_mm<G, true>(data, terms, nterms, x, y, nrhs, ny, nx, interleaved, s)
+                  : launch_mm<G, false>(data, terms, nterms, x, y, nrhs, ny, nx, interleaved, s);
+  }
+  using G = MmOf<T, false>;
+  return cyclic ? launch_mm<G, true>(data, terms, nterms, x, y, nrhs, ny, nx, interleaved, s)
+                : launch_mm<G, false>(data, terms, nterms, x, y, nrhs, ny, nx, interleaved, s);
 }
 
 // ---- the row-slab SpMM kernel --------------------------------------------------
@@ -628,23 +906,6 @@ template <class G>
 size_t slab_smem_bytes(int nterms, int nrhs) {
   return G::S * slab_stage_elems<G>(nterms, nrhs) * sizeof(typename G::Type)
          + 2 * sizeof(int) * static_cast<size_t>(nterms);
-}
-
-// 16 bytes from global to shared memory, asynchronously; with fill false
-// nothing is read and the 16 bytes are zeroed.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(fill ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Block (strip blockIdx.x, segment blockIdx.y of seg_slabs slabs).  terms:
@@ -930,15 +1191,6 @@ int launch_slab_layout(const T* data, const int* terms, int nterms, const T* x, 
                                         s);
 }
 
-// the tuning script's variants of the f32 tiling (2 halo rows)
-using SlabF32 = SlabOf<float, 2>;
-using SlabGlobalHalo = SlabTiling<float, 64, 8, 2, 64, 256, 2, false>;
-using SlabS3 = SlabTiling<float, 64, 8, 3, 64, 256, 2>;
-using SlabW32 = SlabTiling<float, 32, 8, 2, 32, 256, 2>;
-using SlabW128 = SlabTiling<float, 128, 8, 2, 128, 256, 2>;
-using SlabB16 = SlabTiling<float, 64, 16, 2, 64, 256, 2>;
-using SlabCols2 = SlabTiling<float, 64, 8, 2, 32, 256, 2>;
-
 template <class K>
 int slab_resources(K kernel, int threads, size_t bytes, int* r) {
   cudaFuncAttributes a;
@@ -960,21 +1212,17 @@ int slab_resources(K kernel, int threads, size_t bytes, int* r) {
 // data: (nfields, ny, nx) resp. (ndiags, n) row-major; terms: nterms rows of
 // (k, dy, dx) resp. (k, off), int32, on the device; x and y contiguous,
 // distinct, of the layout named above.  Cyclic shifts lie in [0, ny) x
-// [0, nx).  grid_dia_matvec's `vec` takes the vector path (nx a multiple
-// of a 16-byte vector, data, x and y 16-byte aligned: cudaErrorInvalidValue
-// otherwise) or, 0, the scalar one; grid_dia_matvec_v1 is the SpMV of the
-// earlier design.  Each launches on `stream`, does not synchronise, and
-// returns the cudaError_t of the launch (0 on success).
+// [0, nx).  `vec` takes the tiled kernels' vector path (nx a multiple of a
+// 16-byte vector, data, x and y 16-byte aligned: cudaErrorInvalidValue
+// otherwise) or, 0, the scalar one; grid_dia_matmat_v1 is the general SpMM
+// of the earlier design in either layout (interleaved 0 or 1).  Each
+// launches on `stream`, does not synchronise, and returns the cudaError_t
+// of the launch (0 on success).
 #define DIA_SPMV_EXPORTS(T, tag)                                                        \
   extern "C" int grid_dia_matvec_##tag(const T* data, const int* terms, int nterms,     \
                                        const T* x, T* y, int ny, int nx, int cyclic,    \
                                        int vec, void* stream) {                         \
     return launch_grid_matvec(data, terms, nterms, cyclic, vec, x, y, ny, nx, stream);  \
-  }                                                                                     \
-  extern "C" int grid_dia_matvec_v1_##tag(const T* data, const int* terms, int nterms,  \
-                                          const T* x, T* y, int ny, int nx, int cyclic, \
-                                          void* stream) {                               \
-    return launch_grid_matvec_v1(data, terms, nterms, cyclic, x, y, ny, nx, stream);    \
   }                                                                                     \
   extern "C" int dia_flat_matvec_##tag(const T* data, const int* terms, int nterms,     \
                                        const T* x, T* y, long long n, void* stream) {   \
@@ -982,15 +1230,21 @@ int slab_resources(K kernel, int threads, size_t bytes, int* r) {
   }                                                                                     \
   extern "C" int grid_dia_matmat_##tag(const T* data, const int* terms, int nterms,     \
                                        const T* x, T* y, int nrhs, int ny, int nx,      \
-                                       int cyclic, void* stream) {                      \
-    return launch_grid_matmat(data, terms, nterms, cyclic, 0, x, y, nrhs, ny, nx,       \
+                                       int cyclic, int vec, void* stream) {             \
+    return launch_grid_matmat(data, terms, nterms, cyclic, vec, 0, x, y, nrhs, ny, nx,  \
                               stream);                                                  \
   }                                                                                     \
   extern "C" int grid_dia_matmat_interleaved_##tag(                                     \
       const T* data, const int* terms, int nterms, const T* x, T* y, int nrhs, int ny,  \
-      int nx, int cyclic, void* stream) {                                               \
-    return launch_grid_matmat(data, terms, nterms, cyclic, 1, x, y, nrhs, ny, nx,       \
+      int nx, int cyclic, int vec, void* stream) {                                      \
+    return launch_grid_matmat(data, terms, nterms, cyclic, vec, 1, x, y, nrhs, ny, nx,  \
                               stream);                                                  \
+  }                                                                                     \
+  extern "C" int grid_dia_matmat_v1_##tag(const T* data, const int* terms, int nterms,  \
+                                          const T* x, T* y, int nrhs, int ny, int nx,   \
+                                          int cyclic, int interleaved, void* stream) {  \
+    return launch_grid_matmat_v1(data, terms, nterms, cyclic, interleaved, x, y, nrhs,  \
+                                 ny, nx, stream);                                       \
   }
 
 DIA_SPMV_EXPORTS(float, f32)
@@ -1033,75 +1287,27 @@ extern "C" int grid_dia_matmat_resources(int dtype, int nterms, int nrhs, int* r
                         slab_smem_bytes<G>(nterms, nrhs), r);
 }
 
-// The cyclic f32 slab kernel (2 halo rows) at other tilings and wave
-// counts, and its probes, for the tuning script (tools/tune_port_kernels.py);
-// nothing of the package calls it.  Variants and probes as in the switch.
-extern "C" int grid_dia_matmat_slab_variant_f32(const float* data, const int* terms,
-                                                int nterms, const float* x, float* y,
-                                                int nrhs, int ny, int nx, int interleaved,
-                                                int hy, int hx, void* stream, int variant) {
-  size_t rs, ws;
-  layout_strides(interleaved, nrhs, ny, nx, &rs, &ws);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SLAB_VARIANT(G, PROBE, WAVES)                                                    \
-  launch_slab<G, true, PROBE>(data, terms, nterms, x, y, nrhs, ny, nx, hy, hx, rs, ws, s, \
-                              WAVES)
-  switch (variant) {
-    case 0: return SLAB_VARIANT(SlabF32, 0, 1);         // the chosen tiling
-    case 1: return SLAB_VARIANT(SlabGlobalHalo, 0, 1);  // halo rows from global memory
-    case 2: return SLAB_VARIANT(SlabS3, 0, 1);          // 3 stages: one block an SM
-    case 3: return SLAB_VARIANT(SlabW32, 0, 1);
-    case 4: return SLAB_VARIANT(SlabW128, 0, 1);        // one block an SM
-    case 5: return SLAB_VARIANT(SlabB16, 0, 1);         // one block an SM
-    case 6: return SLAB_VARIANT(SlabCols2, 0, 1);       // two columns a thread
-    case 7: return SLAB_VARIANT(SlabF32, 0, 4);         // 4 waves of blocks
-    case 10: return SLAB_VARIANT(SlabF32, 1, 1);        // probe: no copies
-    case 11: return SLAB_VARIANT(SlabF32, 2, 1);        // probe: no arithmetic
-    case 12: return SLAB_VARIANT(SlabF32, 3, 1);        // probe: copies alone
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SLAB_VARIANT
-}
-
 namespace {
 
-// the chosen tilings and the tuning script's variants of the clamped tiled
-// SpMV
+// the chosen tilings of the clamped tiled SpMV
 using MvF32 = MvOf<float, true>;
 using MvF32S = MvOf<float, false>;
 using MvF64 = MvOf<double, false>;
 using MvF64V = MvOf<double, true>;
-using MvF32U1 = MvTiling<float, true, 1, 1, 1>;
-using MvF32U2 = MvTiling<float, true, 1, 1, 2>;
-using MvF32U8 = MvTiling<float, true, 1, 1, 8>;
-using MvF32P8 = MvTiling<float, true, 2, 1, 4>;
-using MvF32R2 = MvTiling<float, true, 1, 2, 4>;
-using MvF32T64 = MvTiling<float, true, 1, 1, 4, 64>;
-using MvF32T128 = MvTiling<float, true, 1, 1, 4, 128>;
-using MvF32SU4 = MvTiling<float, false, 4, 1, 4>;
-using MvF64U1 = MvTiling<double, false, 4, 1, 1>;
-using MvF64U4 = MvTiling<double, false, 4, 1, 4>;
-using MvF64U8 = MvTiling<double, false, 4, 1, 8>;
-using MvF64P2 = MvTiling<double, false, 2, 1, 2>;
-using MvF64P8 = MvTiling<double, false, 8, 1, 2>;
-using MvF64R2 = MvTiling<double, false, 4, 2, 2>;
-using MvF64T64 = MvTiling<double, false, 4, 1, 2, 64>;
-using MvF64T128 = MvTiling<double, false, 4, 1, 2, 128>;
-using MvF64VU4 = MvTiling<double, true, 2, 1, 4>;
-using MvF64U4B4 = MvTiling<double, false, 4, 1, 4, 32, 4>;
 
-template <class G>
-int mv_resources(int* r) {
-  const auto kernel = grid_dia_matvec_tiled_kernel<G, false, kMvKernel>;
+// what the compiler and the card give one tiled kernel (as slab_resources)
+// launched with `dyn` bytes of dynamic shared memory
+template <class K>
+int tile_resources(K kernel, int* r, size_t dyn = 0) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   r[0] = a.numRegs;
-  r[1] = static_cast<int>(a.sharedSizeBytes);
+  r[1] = static_cast<int>(a.sharedSizeBytes + dyn);
   r[2] = static_cast<int>(a.localSizeBytes);
-  r[4] = kMvThreads;
+  r[4] = kTileThreads;
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[3], kernel, kMvThreads, 0));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[3], kernel, kTileThreads, dyn));
 }
 
 }  // namespace
@@ -1111,62 +1317,21 @@ int mv_resources(int* r) {
 // thread, r[1] shared-memory bytes a block, r[2] local (spill) bytes a
 // thread, r[3] resident blocks an SM, r[4] threads a block.
 extern "C" int grid_dia_matvec_resources(int dtype, int vec, int* r) {
-  if (dtype == 0) return vec ? mv_resources<MvF32>(r) : mv_resources<MvF32S>(r);
-  return vec ? mv_resources<MvF64V>(r) : mv_resources<MvF64>(r);
-}
-
-// The clamped tiled SpMV at other tilings, and its probes, for the tuning
-// script (tools/tune_port_kernels.py spmv); nothing of the package calls
-// them.  Variants as in the switches: around the f32 vector path and the
-// f64 scalar path (the Poisson 999^2 shape), each with the other path.
-#define MV_VARIANT(G, PROBE) launch_mv<G, false, PROBE>(data, terms, nterms, x, y, ny, nx, s)
-
-extern "C" int grid_dia_matvec_variant_f32(const float* data, const int* terms, int nterms,
-                                           const float* x, float* y, int ny, int nx,
-                                           void* stream, int variant) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0: return MV_VARIANT(MvF32, kMvKernel);         // the chosen tiling: P 4, U 4
-    case 1: return MV_VARIANT(MvF32U1, kMvKernel);       // U = 1
-    case 2: return MV_VARIANT(MvF32U2, kMvKernel);       // U = 2
-    case 3: return MV_VARIANT(MvF32U8, kMvKernel);       // U = 8
-    case 4: return MV_VARIANT(MvF32P8, kMvKernel);       // 8 points a thread
-    case 5: return MV_VARIANT(MvF32R2, kMvKernel);       // 2 rows a thread
-    case 6: return MV_VARIANT(MvF32S, kMvKernel);        // the scalar path (U = 2)
-    case 7: return MV_VARIANT(MvF32T64, kMvKernel);      // 64 threads along a row
-    case 8: return MV_VARIANT(MvF32T128, kMvKernel);     // 128 threads along a row
-    case 9: return MV_VARIANT(MvF32SU4, kMvKernel);      // the scalar path, U = 4
-    case 20: return MV_VARIANT(MvF32, kMvNoList);
-    case 21: return MV_VARIANT(MvF32, kMvLoadsAlone);
-    case 22: return MV_VARIANT(MvF32, kMvCoefAlone);
-    case 23: return MV_VARIANT(MvF32, kMvXAlone);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    return vec ? tile_resources(grid_dia_matvec_tiled_kernel<MvF32, false, kMvKernel>, r)
+               : tile_resources(grid_dia_matvec_tiled_kernel<MvF32S, false, kMvKernel>, r);
   }
+  return vec ? tile_resources(grid_dia_matvec_tiled_kernel<MvF64V, false, kMvKernel>, r)
+             : tile_resources(grid_dia_matvec_tiled_kernel<MvF64, false, kMvKernel>, r);
 }
 
-extern "C" int grid_dia_matvec_variant_f64(const double* data, const int* terms, int nterms,
-                                           const double* x, double* y, int ny, int nx,
-                                           void* stream, int variant) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0: return MV_VARIANT(MvF64, kMvKernel);         // the chosen tiling: P 4, U 2
-    case 1: return MV_VARIANT(MvF64U1, kMvKernel);       // U = 1
-    case 2: return MV_VARIANT(MvF64U4, kMvKernel);       // U = 4
-    case 3: return MV_VARIANT(MvF64U8, kMvKernel);       // U = 8
-    case 4: return MV_VARIANT(MvF64P2, kMvKernel);       // 2 points a thread
-    case 5: return MV_VARIANT(MvF64P8, kMvKernel);       // 8 points a thread
-    case 6: return MV_VARIANT(MvF64R2, kMvKernel);       // 2 rows a thread
-    case 7: return MV_VARIANT(MvF64T64, kMvKernel);      // 64 threads along a row
-    case 8: return MV_VARIANT(MvF64T128, kMvKernel);     // 128 threads along a row
-    case 9: return MV_VARIANT(MvF64V, kMvKernel);        // the vector path (U = 2)
-    case 10: return MV_VARIANT(MvF64VU4, kMvKernel);     // the vector path, U = 4
-    case 11: return MV_VARIANT(MvF64U4B4, kMvKernel);    // U = 4 in 64 registers (spills)
-    case 20: return MV_VARIANT(MvF64, kMvNoList);
-    case 21: return MV_VARIANT(MvF64, kMvLoadsAlone);
-    case 22: return MV_VARIANT(MvF64, kMvCoefAlone);
-    case 23: return MV_VARIANT(MvF64, kMvXAlone);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The same for the clamped tiled SpMM (the general path).
+extern "C" int grid_dia_matmat_general_resources(int dtype, int vec, int* r) {
+  auto of = [r](auto g) {
+    using G = decltype(g);
+    return tile_resources(grid_dia_matmat_tiled_kernel<G, false, kMvKernel>, r,
+                          G::kWindowBytes);
+  };
+  if (dtype == 0) return vec ? of(MmOf<float, true>{}) : of(MmOf<float, false>{});
+  return vec ? of(MmOf<double, true>{}) : of(MmOf<double, false>{});
 }
-
-#undef MV_VARIANT

@@ -29,18 +29,24 @@ whole, aligned 16-byte vectors and its ``"scalar"`` path otherwise, from
 shape and address alone; ``grid_dia_matvec.launches_by_path`` splits the
 count.  :func:`grid_dia_matvec_tiled_sim` rehearses it on the CPU, and
 :func:`grid_dia_block_terms` is its classification of the terms for one
-tile.  The one-thread-a-point SpMV of the earlier design stays reachable
-for timing in turns (``_matvec_v1``, counted nowhere).
+tile.
 
 The SpMM has two hand-written kernels, chosen by :func:`spmm_path` from
 the container's terms, the shape and the addresses alone, never by a
 failed launch: the row-slab kernel (``"slab"``) where the signed reach of
 the terms fits its staged halo and the rows are whole, aligned 16-byte
-vectors, the one-thread-a-point kernel of the earlier design
-(``"general"``) for every other container or shape (far shifts, odd
-widths).  The two SpMM wrappers' ``.launches_by_path`` splits their count
-by path.  :func:`grid_dia_matmat_slab_sim` rehearses the slab kernel's
-data movement on the CPU.
+vectors, the tiled kernel (``"general"``) for every other container or
+shape (far shifts, odd widths, unaligned stacks).  The tiled SpMM takes
+the tiled SpMV's per-block live-term lists to a stack: a tile of 8 x 64
+f32 / 8 x 32 f64 points, a register tile of up to 8 right-hand sides, each
+coefficient loaded once for all of them, and x staged in a shared-memory
+window of the tile and its reach; :func:`matvec_path` names its path for
+the stack too (``"vector"``: the window copied as 16-byte vectors).  The
+two SpMM wrappers' ``.launches_by_path`` splits their count by kernel.
+:func:`grid_dia_matmat_slab_sim` and :func:`grid_dia_matmat_tiled_sim`
+rehearse the two on the CPU.  The one-thread-a-point SpMM of the earlier
+design stays reachable for timing in turns (``_matmat_general_v1``,
+counted nowhere).
 
 The JAX wrappers' ``block_rows`` sizes the TPU's slab pipeline and has no
 counterpart here.  The kernels have no derivative rule, as the Pallas
@@ -68,12 +74,10 @@ def _kernel(name: str):
         args = [p, p, i, p, p, i, i, i, i, i, i, i, p]
     elif name.startswith("dia_flat_matvec"):
         args = [p, p, i, p, p, ctypes.c_longlong, p]
-    elif name.startswith("grid_dia_matvec_v1"):
-        args = [p, p, i, p, p, i, i, i, p]
     elif name.startswith("grid_dia_matvec"):
         args = [p, p, i, p, p, i, i, i, i, p]
-    else:  # the two SpMM layouts
-        args = [p, p, i, p, p, i, i, i, i, p]
+    else:  # the tiled SpMM in either layout, and the earlier design
+        args = [p, p, i, p, p, i, i, i, i, i, p]
     return c_function(name, args)
 
 
@@ -231,13 +235,14 @@ _MV_ROWS, _MV_TX, _MV_POINTS, _MV_CHUNK = 8, 32, 4, 256
 
 
 def matvec_path(a: GridDIA, x2) -> str:
-    """Which path of the tiled SpMV takes ``A @ x2``: ``"vector"`` where
-    ``nx`` is a multiple of a 16-byte vector and ``x2`` and the
-    coefficients are 16-byte aligned (the output is allocated aligned), so
-    that coefficients and y move as 16-byte vectors; ``"scalar"``
-    otherwise (odd widths such as 999 f64).  Decided from shape and
-    address alone (a functorch-wrapped tensor has no address: ``"scalar"``,
-    and the launch refuses it)."""
+    """Which path of the tiled SpMV takes ``A @ x2`` (and of the tiled
+    SpMM, for a stack ``x2`` in either layout): ``"vector"`` where ``nx``
+    is a multiple of a 16-byte vector and ``x2`` and the coefficients are
+    16-byte aligned (the output is allocated aligned), so that the SpMV's
+    coefficients and y move as 16-byte vectors and the SpMM copies its x
+    window as 16-byte vectors; ``"scalar"`` otherwise (odd widths such as
+    999 f64).  Decided from shape and address alone (a functorch-wrapped
+    tensor has no address: ``"scalar"``, and the launch refuses it)."""
     vector = 16 // x2.element_size() if x2.dtype in _DTYPES else 0
     wrapped = torch._C._functorch.is_functorch_wrapped_tensor
     if (not vector or a.grid[1] % vector or wrapped(x2) or wrapped(a.data)
@@ -263,15 +268,18 @@ def _axis_kind(lo: int, hi: int, d: int, n: int, cyclic: bool):
     return ("whole" if lo + d >= 0 and hi + d < n else "partial"), d
 
 
-def grid_dia_block_terms(rows, grid, cyclic: bool, r0: int, r1: int, c0: int, c1: int):
-    """The live-term list that the tiled kernel builds for the tile of rows
+def grid_dia_block_terms(rows, grid, cyclic: bool, r0: int, r1: int, c0: int, c1: int,
+                         row_stride: int | None = None):
+    """The live-term list that the tiled kernels build for the tile of rows
     ``[r0, r1)`` and columns ``[c0, c1)`` from the term table ``rows``
     (``(k, dy, dx)``, cyclic shifts in ``[0, n)``): the terms with a source
     in the grid, in table order, as ``(kind, k, dy, dx, xoff)`` with kind
     ``"whole"`` (every source in the grid and, cyclic, none wrapping within
-    the tile: ``xoff`` is the flat offset of the source, no per-point
-    test) or ``"partial"`` (tested per point)."""
+    the tile: ``xoff`` is the flat offset of the source in x, whose rows
+    lie ``row_stride`` apart, ``nx`` by default; no per-point test) or
+    ``"partial"`` (tested per point)."""
     ny, nx = grid
+    row_stride = nx if row_stride is None else row_stride
     out = []
     for k, dy, dx in rows:
         ky, ey = _axis_kind(r0, r1 - 1, dy, ny, cyclic)
@@ -279,7 +287,7 @@ def grid_dia_block_terms(rows, grid, cyclic: bool, r0: int, r1: int, c0: int, c1
         if "dead" in (ky, kx):
             continue
         kind = "whole" if ky == kx == "whole" else "partial"
-        out.append((kind, k, dy, dx, ey * nx + ex))
+        out.append((kind, k, dy, dx, ey * row_stride + ex))
     return out
 
 
@@ -363,6 +371,79 @@ def grid_dia_matvec_tiled_sim(a: GridDIA, x2, path: str = "vector", rows: int = 
     return y.reshape(ny, nx)
 
 
+# The tiled SpMM's tiling, as in csrc/dia_spmv.cu (MmTiling, MmOf): 8 rows x
+# 32 threads a tile, 2 f32 or 1 f64 points a thread 32 columns apart: tiles
+# of 8 x 64 f32, 8 x 32 f64 (element size -> columns) on both paths; a
+# register tile of 8 right-hand sides; terms in chunks of 256.
+_MM_ROWS, _MM_COLS, _MM_RHS_TILE = 8, {4: 64, 8: 32}, 8
+
+
+def grid_dia_matmat_tiled_sim(a: GridDIA, x, layout: str = "stacked", rows: int = _MM_ROWS,
+                              cols: int | None = None, rhs_tile: int = _MM_RHS_TILE,
+                              chunk: int = _MV_CHUNK):
+    """CPU rehearsal of the tiled SpMM, in plain PyTorch: ``Y = A X`` is
+    built tile by tile (``rows`` x ``cols``, the kernel's 8 x 64 f32 /
+    8 x 32 f64 by default, the last ones ragged) and, within a tile, a
+    register tile of ``rhs_tile`` right-hand sides at a time.  For each
+    chunk of ``chunk`` terms of the table the tile's live list
+    (:func:`grid_dia_block_terms`, with x's row stride) is walked in table
+    order: a whole term reads each point's coefficient and, for every
+    right-hand side of the tile, the source at the point's flat x index
+    plus ``xoff``; a partial one tests each point's source (wrapped when
+    cyclic) and reads only where it lies in the grid.  What the kernel must
+    not read is NaN: every coefficient whose source lies outside the grid,
+    x outside the stack's buffer, and every output not written (each is
+    written once).  Products are rounded on their own (the kernel fuses
+    them into FMAs).  ``x`` is ``(nrhs, ny, nx)`` (``layout="stacked"``)
+    or ``(ny, nrhs, nx)`` (``"interleaved"``)."""
+    ny, nx = a.grid
+    stacked = layout == "stacked"
+    nrhs = x.shape[0] if stacked else x.shape[1]
+    rs, ws = (ny * nx, nx) if stacked else (nx, nrhs * nx)
+    cols = _MM_COLS[x.element_size()] if cols is None else cols
+    terms = _term_rows(a.shifts, a.grid, a.cyclic, False)
+    data = a.data.clone()
+    gr, gc = torch.arange(ny)[:, None], torch.arange(nx)[None, :]
+    if not a.cyclic:  # the coefficients the kernel must not read
+        for k, (dy, dx) in enumerate(a.shifts):
+            data[k][(gr + dy < 0) | (gr + dy >= ny) | (gc + dx < 0) | (gc + dx >= nx)] = \
+                float("nan")
+    flat = data.reshape(len(a.shifts), ny * nx)
+    total = x.numel()
+    nan = torch.full((total,), float("nan"), dtype=x.dtype)
+    xpad = torch.cat([nan, x.reshape(total), nan])  # a read outside the buffer is NaN
+    y = torch.full((total,), float("nan"), dtype=x.dtype)
+    for r0 in range(0, ny, rows):
+        for c0 in range(0, nx, cols):
+            r1, c1 = min(r0 + rows, ny), min(c0 + cols, nx)
+            pr = torch.arange(r0, r1).repeat_interleave(c1 - c0)
+            pc = torch.arange(c0, c1).repeat(r1 - r0)
+            here, xat = pr * nx + pc, pr * ws + pc
+            for j0 in range(0, nrhs, rhs_tile):
+                jrs = torch.arange(j0, min(j0 + rhs_tile, nrhs))[:, None] * rs
+                acc = torch.zeros((jrs.shape[0], here.numel()), dtype=x.dtype)
+                for t0 in range(0, len(terms), chunk):
+                    live = grid_dia_block_terms(terms[t0:t0 + chunk], a.grid, a.cyclic, r0, r1,
+                                                c0, c1, row_stride=ws)
+                    for kind, k, dy, dx, xoff in live:
+                        if kind == "whole":
+                            acc = acc + flat[k][here] * xpad[jrs + xat + xoff + total]
+                            continue
+                        sr, sc = pr + dy, pc + dx
+                        if a.cyclic:
+                            sr, sc = sr % ny, sc % nx
+                        ok = (sr >= 0) & (sr < ny) & (sc >= 0) & (sc < nx)
+                        d, xs = torch.zeros(here.numel(), dtype=x.dtype), torch.zeros_like(acc)
+                        d[ok] = flat[k][here[ok]]
+                        xs[:, ok] = xpad[jrs + (sr * ws + sc)[ok] + total]
+                        acc = acc + d * xs
+                at = jrs + xat
+                if not bool(y[at].isnan().all()):
+                    raise AssertionError(f"the tile at {(r0, c0)} writes a point twice")
+                y[at] = acc
+    return y.reshape(x.shape)
+
+
 @lru_cache(maxsize=64)
 def _flat_terms(offsets, n: int, device: torch.device):
     """The flat kernel's term table: int32 rows ``(k, off)`` in the order
@@ -430,16 +511,6 @@ def grid_dia_matvec(a: GridDIA, x2):
                    ny, nx, int(a.cyclic), int(path == "vector"), path=path)
 
 
-def _matvec_v1(a: GridDIA, x2):
-    """The one-thread-a-point SpMV of the earlier design on a CUDA grid
-    view, counted nowhere: for timing it against the tiled kernel in one
-    process."""
-    ny, nx = a.grid
-    _check_operands("grid_dia_matvec", a.data, x2, (len(a.shifts), ny, nx), (ny, nx))
-    terms = _grid_terms(a.shifts, a.grid, a.cyclic, x2.device)
-    return _launch(None, "grid_dia_matvec_v1", a.data, terms, x2, ny, nx, int(a.cyclic))
-
-
 def dia_flat_matvec(a: DIA, grid: tuple[int, int], x):
     """``y = A @ x`` for a row-aligned flat DIA matrix whose rows are the
     flattened ``(ny, nx)`` grid; ``x`` holds ``ny * nx`` values in any
@@ -476,14 +547,25 @@ def _matmat_launch(wrapper, a: GridDIA, x, nrhs: int, interleaved: bool,
     name = "grid_dia_matmat_interleaved" if interleaved else "grid_dia_matmat"
     terms = _grid_terms(a.shifts, a.grid, a.cyclic, x.device)
     return _launch(wrapper, name, a.data, terms, x, nrhs, ny, nx, int(a.cyclic),
-                   path=path)
+                   int(matvec_path(a, x) == "vector"), path=path)
 
 
 def _matmat_general(a: GridDIA, x, interleaved: bool = False):
-    """The general SpMM kernel on any CUDA stack, counted nowhere: for
-    timing the earlier design against the slab kernel in one process."""
+    """The general (tiled) SpMM kernel on any CUDA stack, counted nowhere:
+    for timing it against the slab kernel in one process."""
     nrhs = x.shape[1] if interleaved else x.shape[0]
     return _matmat_launch(None, a, x, nrhs, interleaved, "general")
+
+
+def _matmat_general_v1(a: GridDIA, x, interleaved: bool = False):
+    """The one-thread-a-point SpMM of the earlier design on any CUDA stack,
+    counted nowhere: for timing the tiled kernel against it in one
+    process."""
+    nrhs = x.shape[1] if interleaved else x.shape[0]
+    ny, nx = a.grid
+    terms = _grid_terms(a.shifts, a.grid, a.cyclic, x.device)
+    return _launch(None, "grid_dia_matmat_v1", a.data, terms, x, nrhs, ny, nx,
+                   int(a.cyclic), int(interleaved))
 
 
 def grid_dia_matmat(a: GridDIA, x3):

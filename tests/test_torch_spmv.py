@@ -10,10 +10,12 @@ here too, by a numpy emulation of the kernels' index logic.
 The ``gpu``-marked tests hold each CUDA kernel against its plain version
 on the card, at every row shape of the smoke run's kernel phase (f32 to
 1e-5 of max|plain|, f64 to 1e-12: the kernels contract multiply-add into
-FMA, the plain versions do not), the tiled SpMV against the
-one-thread-a-point SpMV of the earlier design (bit for bit, on both of its
-paths, far-shift, odd-width and many-term containers and 1e30 coefficients
-where a source lies outside the grid), and the two SpMM kernels (the
+FMA, the plain versions do not), the tiled SpMV's two paths against each
+other (bit for bit, on far-shift, odd-width and many-term containers and
+1e30 coefficients where a source lies outside the grid), the tiled
+(general) SpMM against the one-thread-a-point SpMM of the earlier design
+(bit for bit, on both of its paths and both layouts, nrhs 1, 3, 8, 11,
+1e30 out-of-grid coefficients included), and the two SpMM kernels (the
 row-slab and the general one) against each other at shapes that take each
 path:
 ``python -m pytest --noconftest -m gpu tests/test_torch_spmv.py``
@@ -377,7 +379,7 @@ def test_cuda_grid_dia_matvec_matches_plain(case):
 # far-shift, Poisson, Dirichlet 4096^2 and cyclic rows, ragged tiles on both
 # paths (37 x 132, 37 x 130), odd pitches (999 f64, 130 f32, 9 x 14 f32) and
 # the random containers of 536 / 391 terms (lists of several chunks)
-MATVEC_V1_GPU_CASES = {
+MATVEC_PATH_GPU_CASES = {
     "sh_clamped_1024_f32": ("sh", (1024, 1024), False, torch.float32, "vector"),
     "sh_cyclic_2048_f32": ("sh", (2048, 2048), True, torch.float32, "vector"),
     "dirichlet_4096_f32": ("dirichlet", (4096, 4096), False, torch.float32, "vector"),
@@ -399,16 +401,25 @@ def _matvec_case_matrix(kind, grid):
     return _gpu_matrix(kind, grid)
 
 
+def _unaligned_copy(x):
+    """A contiguous copy of ``x`` whose first element is not 16-byte
+    aligned: the tiled kernels take their scalar path on it."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    assert flat.data_ptr() % 16
+    return flat.view(x.shape).copy_(x)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(MATVEC_V1_GPU_CASES))
-def test_cuda_grid_dia_matvec_equals_v1(case):
-    """The tiled kernel sums each point's live terms in table order with
-    one FMA a term, as the one-thread-a-point kernel of the earlier design
-    does: on the path ``matvec_path`` names it equals that kernel bit for
-    bit, on the container's coefficients and on random ones everywhere,
-    and lies within the gate of the plain version."""
+@pytest.mark.parametrize("case", list(MATVEC_PATH_GPU_CASES))
+def test_cuda_grid_dia_matvec_paths_match_plain(case):
+    """The tiled kernel takes the path ``matvec_path`` names and lies within
+    the gate of the plain version, on the container's coefficients and on
+    random ones everywhere; each point sums its live terms in table order
+    with one FMA a term on either path, so where the vector path runs, an
+    unaligned copy of x (the scalar path) gives the same product bit for
+    bit."""
     dev = _cuda()
-    kind, grid, cyclic, dtype, path = MATVEC_V1_GPU_CASES[case]
+    kind, grid, cyclic, dtype, path = MATVEC_PATH_GPU_CASES[case]
     m = _matvec_case_matrix(kind, grid).astype(_np_dtype(dtype))
     a = ts.GridDIA.from_scipy(m, grid, cyclic=cyclic, device=dev)
     x = torch.tensor(_rand(grid, seed=3), dtype=dtype, device=dev)
@@ -417,11 +428,15 @@ def test_cuda_grid_dia_matvec_equals_v1(case):
                                         device=dev))
     for b in (a, rand):
         before = spmv.grid_dia_matvec.launches_by_path[path]
-        got, old, want = spmv.grid_dia_matvec(b, x), spmv._matvec_v1(b, x), b._apply(x)
+        got, want = spmv.grid_dia_matvec(b, x), b._apply(x)
         torch.cuda.synchronize()
         assert spmv.grid_dia_matvec.launches_by_path[path] == before + 1
-        assert torch.equal(got, old), float((got - old).abs().max())
         _close(got.cpu(), want.cpu(), _gate(dtype))
+        if path == "vector":
+            xs = _unaligned_copy(x)
+            assert spmv.matvec_path(b, xs) == "scalar"
+            other = spmv.grid_dia_matvec(b, xs)
+            assert torch.equal(got, other), float((got - other).abs().max())
 
 
 @pytest.mark.gpu
@@ -447,7 +462,6 @@ def test_cuda_matvec_out_of_grid_coefficients_add_nothing(kind, grid, dtype):
     b = a._replace(data=data)
     got = spmv.grid_dia_matvec(b, x)
     assert torch.equal(got, spmv.grid_dia_matvec(a, x))
-    assert torch.equal(got, spmv._matvec_v1(b, x))
 
 
 @pytest.mark.gpu
@@ -557,6 +571,103 @@ def test_cuda_spmm_paths_match_plain_and_each_other(case, nrhs):
         _close(got.cpu(), want.cpu(), _gate(dtype))
         _close(got.cpu(), general3.cpu(), _gate(dtype))
     _close(generali.cpu(), want.cpu(), _gate(dtype))
+
+
+# (operator, grid, cyclic container, dtype, matvec_path of the stack): the
+# general cases of SPMM_PATH_GPU_CASES (a width that is not whole f32
+# vectors; the far-shift clamped SH container), the smoke run's far-shift
+# 1024^2 f32 and Poisson 999^2 f64 rows, a random container of 536 terms
+# (lists of several chunks), and a list whose first chunk is dead for the
+# top tiles while the next one holds whole terms that read the x window
+SPMM_GENERAL_GPU_CASES = {
+    "sh_cyclic_37x130_f32": ("sh", (37, 130), True, torch.float32, "scalar"),
+    "sh_far_clamped_24_f64": ("sh", (24, 24), False, torch.float64, "vector"),
+    "sh_far_clamped_1024_f32": ("sh", (1024, 1024), False, torch.float32, "vector"),
+    "poisson_999_f64": ("poisson", (999, 999), False, torch.float64, "scalar"),
+    "random_24_clamped_f64": ("random", (N, N), False, torch.float64, "vector"),
+    "dead_first_chunk_24x132_f32": ("deadfirst", (24, 132), False, torch.float32, "vector"),
+    "dead_first_chunk_24x99_f64": ("deadfirst", (24, 99), False, torch.float64, "scalar"),
+}
+
+
+def _dead_first_operator(ny, nx):
+    """The Dirichlet 5-point Laplacian behind 272 unit diagonals at dy
+    -23..-8, |dx| <= 8: the clamped container's table starts with 256 and
+    more terms that reach no point of the top tiles (rows 0-7), ahead of
+    the stencil's whole terms."""
+    offsets = [dy * nx + dx for dy in range(-23, -7) for dx in range(-8, 9)]
+    far = sp.diags([np.ones(ny * nx - abs(o)) for o in offsets], offsets)
+    return (far + _grid_operator("dirichlet", ny, nx)).tocsr()
+
+
+def _spmm_case_matrix(kind, grid):
+    if kind in ("poisson", "random"):
+        return _gpu_matrix(kind, grid)
+    if kind == "deadfirst":
+        return _dead_first_operator(*grid)
+    return _grid_operator(kind, *grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 11])
+@pytest.mark.parametrize("case", list(SPMM_GENERAL_GPU_CASES))
+def test_cuda_general_spmm_equals_v1(case, nrhs):
+    """The tiled (general) SpMM sums each point's live terms in table order
+    with one FMA a term a right-hand side, as the one-thread-a-point SpMM
+    of the earlier design does: in both layouts, on the path
+    ``matvec_path`` names (and, where that is the vector path, on an
+    unaligned copy of the stack: the scalar path), it equals that kernel
+    bit for bit, on random coefficients everywhere, and lies within the
+    gate of the plain version."""
+    dev = _cuda()
+    kind, grid, cyclic, dtype, path = SPMM_GENERAL_GPU_CASES[case]
+    m = _spmm_case_matrix(kind, grid).astype(_np_dtype(dtype))
+    a = ts.GridDIA.from_scipy(m, grid, cyclic=cyclic, device=dev)
+    a = a._replace(data=torch.tensor(_rand(tuple(a.data.shape), seed=8), dtype=dtype,
+                                     device=dev))
+    x3 = torch.tensor(_rand((nrhs,) + grid, seed=4), dtype=dtype, device=dev)
+    xi = x3.movedim(0, 1).contiguous()
+    want = spmv._matmat_plain(a, x3)
+    for x, wrapper, inter in ((x3, spmv.grid_dia_matmat, False),
+                              (xi, spmv.grid_dia_matmat_interleaved, True)):
+        assert spmv.spmm_path(a, x) == "general" and spmv.matvec_path(a, x) == path
+        before = wrapper.launches_by_path["general"]
+        got, old = wrapper(a, x), spmv._matmat_general_v1(a, x, interleaved=inter)
+        torch.cuda.synchronize()
+        assert wrapper.launches_by_path["general"] == before + 1
+        assert torch.equal(got, old), float((got - old).abs().max())
+        _close((got.movedim(1, 0) if inter else got).cpu(), want.cpu(), _gate(dtype))
+        if path == "vector":
+            xs = _unaligned_copy(x)
+            assert spmv.matvec_path(a, xs) == "scalar"
+            assert torch.equal(spmv._matmat_general(a, xs, interleaved=inter), old)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,grid,dtype", [("biharmonic", (37, 132), torch.float32),
+                                             ("dirichlet", (37, 999), torch.float64),
+                                             ("sh", (64, 64), torch.float32)])
+def test_cuda_general_spmm_out_of_grid_coefficients_add_nothing(kind, grid, dtype):
+    """The card's version of test_out_of_grid_terms_add_nothing_whatever_the_
+    coefficient for the general SpMM, in both layouts, on both paths and on
+    the far-shift container (the non-cyclic SH operator, |dy| up to 63):
+    1e30 wherever a source lies outside the grid gives the untouched
+    container's product bit for bit, and the earlier design's."""
+    dev = _cuda()
+    a = ts.GridDIA.from_scipy(_grid_operator(kind, *grid).astype(_np_dtype(dtype)), grid,
+                              device=dev)
+    data = a.data.clone()
+    for k, (dy, dx) in enumerate(a.shifts):
+        rows = torch.arange(grid[0], device=dev)[:, None] + dy
+        cols = torch.arange(grid[1], device=dev)[None, :] + dx
+        data[k][(rows < 0) | (rows >= grid[0]) | (cols < 0) | (cols >= grid[1])] = 1e30
+    assert int((data == 1e30).sum()) > 0
+    b = a._replace(data=data)
+    x3 = torch.tensor(_rand((3,) + grid, seed=6), dtype=dtype, device=dev)
+    for x, inter in ((x3, False), (x3.movedim(0, 1).contiguous(), True)):
+        got = spmv._matmat_general(b, x, interleaved=inter)
+        assert torch.equal(got, spmv._matmat_general(a, x, interleaved=inter))
+        assert torch.equal(got, spmv._matmat_general_v1(b, x, interleaved=inter))
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Tile and segment tuning of the port's four redesigned CUDA kernels on
-one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]``.
+"""Tile and segment tuning of the port's five redesigned CUDA kernels on
+one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]
+[general]``.
 
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
@@ -29,8 +30,22 @@ the device alone), the chosen design (``droplet``) or the earlier design
   rows a thread, terms whose loads are issued together, the other path),
   its four probes (every term tested at every point: no list; the loads
   without the multiply-adds; the coefficients alone; x alone), and the
-  cyclic SH 2048^2 f32 row, each against the one-thread-a-point kernel of
-  the earlier design (``v1``), with the bytes bound of each row.
+  cyclic SH 2048^2 f32 row, the chosen tiling first and last, with the
+  bytes bound of each row;
+- ``general``: the tiled (general) SpMM on the smoke run's general rows
+  (the far-shift clamped SH container at 1024^2 x 8 f32 on the vector path;
+  the Poisson 999^2 operator x 8 f64 on the scalar path) at each tiling of
+  ``grid_dia_matmat_general_variant_{f32,f64}`` (points a thread, terms
+  whose loads are issued together, right-hand sides a register tile, the
+  register cap, x as single points, the other path), the tiled SpMV's
+  four probes, and both layouts of the chosen tiling, against the
+  one-thread-a-point SpMM of the earlier design (``v1``, first and last),
+  with the bytes bound of each row.
+
+The sparse kernels' variants (``spmm``, ``spmv``, ``general``) are not in
+the package's library: ``tools/dia_spmv_tuning.cu`` includes the library
+source and exports them, and this script builds it into a library of its
+own under ``_build/tuning``.
 
 One JSON line per measurement, with the card's name and power limit first.
 """
@@ -41,11 +56,16 @@ import json
 import pathlib
 import subprocess
 import sys
+from functools import lru_cache
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+
+# the variants of the sparse kernels (spmm, spmv, general): the library
+# source at other tilings, built on its own
+TUNING_SOURCE = ROOT / "tools" / "dia_spmv_tuning.cu"
 
 # variant of droplet_jvp_tile_f32 -> (tile rows, tile columns, threads, blocks an SM
 # the registers are capped for)
@@ -57,17 +77,18 @@ JVP_PROBES = {3: "stages_only", 4: "copies_only"}
 _REPORTED = set()
 
 
-def ptxas_report(source: str):
+def ptxas_report(path: pathlib.Path):
     """Compile one source with ``-Xptxas -v`` and print the resource lines
     (once a run)."""
     from iterative_solvers_tpu_torch.ops import _build
 
-    if source in _REPORTED:
+    if path in _REPORTED:
         return
-    _REPORTED.add(source)
+    _REPORTED.add(path)
+    source = path.name
     out = subprocess.run(
-        ["nvcc", *_build.CUDA_FLAGS, "-Xptxas", "-v", "-c", str(_build.CSRC / source),
-         "-o", "/dev/null"], capture_output=True, text=True, timeout=600)
+        ["nvcc", *_build.CUDA_FLAGS, "-Xptxas", "-v", "-c", str(path), "-o", "/dev/null"],
+        capture_output=True, text=True, timeout=600)
     lines = [ln for ln in out.stderr.splitlines() if "ptxas" in ln or "spill" in ln]
     name = None
     for ln in lines:
@@ -81,12 +102,36 @@ def ptxas_report(source: str):
         raise SystemExit(f"nvcc failed on {source}")
 
 
+@lru_cache(maxsize=None)
+def tuning_library() -> ctypes.CDLL:
+    """``TUNING_SOURCE`` built into a library of its own (once a process,
+    beside the package's, with its flags)."""
+    from torch.utils.cpp_extension import load
+    from iterative_solvers_tpu_torch.ops import _build
+
+    build_dir = _build.BUILD_DIR / "tuning"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    return ctypes.CDLL(load(name="dia_spmv_tuning", sources=[str(TUNING_SOURCE)],
+                            build_directory=str(build_dir),
+                            extra_cuda_cflags=_build.CUDA_FLAGS, is_python_module=False,
+                            verbose=False))
+
+
+def tuning_function(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The exported C function ``name`` of ``tuning_library()``, as
+    ``_build.c_function``."""
+    fn = getattr(tuning_library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def tune_droplet(dev):
     import torch
     from iterative_solvers_tpu_torch.core.grid import Grid2D
     from iterative_solvers_tpu_torch.ops import _build, droplet_jvp as dj
 
-    ptxas_report("droplet_jvp.cu")
+    ptxas_report(_build.CSRC / "droplet_jvp.cu")
     tile_fn = _build.c_function("droplet_jvp_tile_f32", dj._ARGS + [ctypes.c_int])
     for n in (1024, 2048):
         grid = Grid2D(nx=n, ny=n, xl=-2.0, xr=5.0, yb=-3.5, yt=3.5)
@@ -126,7 +171,7 @@ def tune_sh(dev):
     from iterative_solvers_tpu_torch.ops import _build, periodic_stencil as ps
     from iterative_solvers_tpu_torch.ops import stencils
 
-    ptxas_report("periodic_stencil.cu")
+    ptxas_report(_build.CSRC / "periodic_stencil.cu")
     args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     r = 0.01
@@ -202,13 +247,13 @@ def stream_reference(dev, nbytes: float):
 def tune_spmm(dev):
     import numpy as np
     import torch
-    from iterative_solvers_tpu_torch.ops import _build, spmv
+    from iterative_solvers_tpu_torch.ops import spmv
     from iterative_solvers_tpu_torch.ops.sparse import GridDIA
 
-    ptxas_report("dia_spmv.cu")
+    ptxas_report(TUNING_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn_c = _build.c_function("grid_dia_matmat_slab_variant_f32",
-                             [p, p, i, p, p, i, i, i, i, i, i, p, i])
+    fn_c = tuning_function("grid_dia_matmat_slab_variant_f32",
+                           [p, p, i, p, p, i, i, i, i, i, i, p, i])
     operators = cs.Operators()
     stream_reference(dev, (13 + 2 * 8) * 4 * cs.SP_N2 ** 2)
     for n in (cs.SP_N, cs.SP_N2):
@@ -278,11 +323,11 @@ MV_ROWS = [("sh_clamped_1024_f32", "sh", 1024, False, "f32"),
 def tune_spmv(dev):
     import numpy as np
     import torch
-    from iterative_solvers_tpu_torch.ops import _build, spmv
+    from iterative_solvers_tpu_torch.ops import spmv
     from iterative_solvers_tpu_torch.ops.sparse import GridDIA
     from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
 
-    ptxas_report("dia_spmv.cu")
+    ptxas_report(TUNING_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     operators = cs.Operators()
     for case, kind, n, cyclic, tag in MV_ROWS:
@@ -302,7 +347,7 @@ def tune_spmv(dev):
         bound_ms, _ = cost.bound_ms(cs.HBM_BYTES_PER_S, peak)
         terms = spmv._grid_terms(a.shifts, a.grid, a.cyclic, dev)
         out = torch.empty_like(x)
-        fn_c = _build.c_function(f"grid_dia_matvec_variant_{tag}", [p, p, i, p, p, i, i, p, i])
+        fn_c = tuning_function(f"grid_dia_matvec_variant_{tag}", [p, p, i, p, p, i, i, p, i])
 
         def variant(k):
             err = fn_c(a.data.data_ptr(), terms.data_ptr(), terms.shape[0], x.data_ptr(),
@@ -311,12 +356,12 @@ def tune_spmv(dev):
                 raise RuntimeError(f"variant {k}: CUDA error {err}")
             return out
 
-        runs = [("v1", lambda: spmv._matvec_v1(a, x))]
+        runs = [("chosen", lambda: spmv.grid_dia_matvec(a, x))]
         if not cyclic:  # the variants are clamped kernels
             runs += [(label, lambda k=k: variant(k)) for k, label in MV_VARIANTS[tag].items()
                      if not (label.startswith("vector") and n % (16 // x.element_size()))]
             runs += [(name, lambda k=k: variant(k)) for k, name in MV_PROBES.items()]
-        runs += [("chosen", lambda: spmv.grid_dia_matvec(a, x)), runs[0]]
+        runs += [runs[0]]
         for label, fn in runs:
             got = fn()
             torch.cuda.synchronize()
@@ -333,6 +378,84 @@ def tune_spmv(dev):
             cs.emit(row)
 
 
+# variant of grid_dia_matmat_general_variant_{f32,f64} -> its tiling, as in
+# csrc/dia_spmv.cu: points a thread along a row P, terms whose coefficient
+# loads are issued together U, right-hand sides a register tile J, blocks an
+# SM the registers are capped for B; the x window in shared memory (copied
+# as 16-byte vectors on the vector path, element by element on the scalar
+# one) or none, x through L1 (variant 0: the chosen tiling)
+MM_VARIANTS = {"f32": {0: "P2_U4_J8_B4", 1: "U2", 2: "U8", 3: "B3", 4: "P1", 5: "J4",
+                       6: "element_copies", 7: "no_window"},
+               "f64": {0: "P1_U8_J8_B4", 1: "U4", 2: "B3", 3: "P2_U4_B2", 4: "no_window"}}
+# the variants that copy the window as 16-byte vectors: rows of whole,
+# aligned vectors only
+VECTOR_ONLY = {"f32": set(MM_VARIANTS["f32"].values()) - {"element_copies", "no_window"},
+               "f64": set()}
+# (case, operator, n, dtype tag): the smoke run's general rows, x 8
+MM_ROWS = [("sh_clamped_1024_x8_f32", "sh", 1024, "f32"),
+           ("poisson_999_x8_f64", "poisson", 999, "f64")]
+
+
+def tune_general(dev, nrhs: int = 8):
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.ops import spmv
+    from iterative_solvers_tpu_torch.ops.sparse import GridDIA
+    from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
+
+    ptxas_report(TUNING_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    operators = cs.Operators()
+    for case, kind, n, tag in MM_ROWS:
+        npdt = np.float32 if tag == "f32" else np.float64
+        a = GridDIA.from_scipy(operators.get(kind, n).astype(npdt), (n, n), device=dev)
+        x3 = torch.tensor(np.random.default_rng(4).standard_normal((nrhs, n, n)),
+                          dtype=a.data.dtype, device=dev)
+        xi = x3.movedim(0, 1).contiguous()
+        want = spmv._matmat_plain(a, x3)
+        scale = float(want.abs().max())
+        gate = 1e-5 if tag == "f32" else 1e-12
+        cost = spmv_kernel_cost(a.shifts, n, n, a.data.element_size(), nrhs)
+        peak = cs.F32_FLOP_PER_S if tag == "f32" else cs.F64_FLOP_PER_S
+        bound_ms, _ = cost.bound_ms(cs.HBM_BYTES_PER_S, peak)
+        terms = spmv._grid_terms(a.shifts, a.grid, a.cyclic, dev)
+        out = torch.empty_like(x3)
+        fn_c = tuning_function(f"grid_dia_matmat_general_variant_{tag}",
+                               [p, p, i, p, p, i, i, i, i, p, i])
+
+        def variant(k):
+            err = fn_c(a.data.data_ptr(), terms.data_ptr(), terms.shape[0], x3.data_ptr(),
+                       out.data_ptr(), nrhs, n, n, 0, torch.cuda.current_stream(dev).cuda_stream,
+                       k)
+            if err:
+                raise RuntimeError(f"variant {k}: CUDA error {err}")
+            return out
+
+        runs = [("v1", lambda: spmv._matmat_general_v1(a, x3))]
+        runs += [(label, lambda k=k: variant(k)) for k, label in MM_VARIANTS[tag].items()
+                 if not (label in VECTOR_ONLY[tag] and n % (16 // x3.element_size()))]
+        runs += [(name, lambda k=k: variant(k)) for k, name in MV_PROBES.items()]
+        runs += [("chosen", lambda: spmv._matmat_general(a, x3)),
+                 ("chosen_interleaved", lambda: spmv._matmat_general(a, xi, True)),
+                 ("v1_interleaved", lambda: spmv._matmat_general_v1(a, xi, True)), runs[0]]
+        for label, fn in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            ms = cs.device_ms(fn)
+            row = {"phase": "tune_general", "case": case, "fields": len(a.shifts),
+                   "terms": terms.shape[0], "nrhs": nrhs, "variant": label, "device_ms": ms,
+                   "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
+            if label not in MV_PROBES.values():  # a probe's output is not A X
+                if label.endswith("interleaved"):
+                    got = got.movedim(1, 0)
+                err = float((got - want).abs().max())
+                row["rel_err"] = err / scale
+                cs.check(err <= gate * scale, f"{label} on {case}: error {err} on {scale}")
+            if label == "chosen":
+                row["path"] = spmv.matvec_path(a, x3)
+            cs.emit(row)
+
+
 def main() -> int:
     import torch
 
@@ -341,7 +464,7 @@ def main() -> int:
         return 2
     from iterative_solvers_tpu_torch.ops import _build
 
-    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv"]
+    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general"]
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
@@ -353,6 +476,8 @@ def main() -> int:
         tune_spmm(dev)
     if "spmv" in which:
         tune_spmv(dev)
+    if "general" in which:
+        tune_general(dev)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 
