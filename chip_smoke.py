@@ -10,7 +10,12 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   resident blocks an SM of the four redesigned kernels
                   (the slab SpMM at 13 terms x 8 right-hand sides; the
                   tiled SpMV on its vector path in f32 and f64 and its
-                  scalar path in f64).
+                  scalar path in f64; the three stream kernels at their
+                  ring's cap); ``roofline``: ``utils/roofline``'s spec rate,
+                  measured triad (8192^2 f32, CUDA-graph chains of 80 and
+                  10), their max (the rate every bytes bound below divides
+                  by) and the L2 size (the working set above which
+                  ``check_bound`` applies).
  3. prepare     — the 1024^2 droplet state as the large-grid example
                   prepares it: the 91x61 coalescence fixture upsampled,
                   deviation-form mesh, 3 x 60 f32 PMA sweeps at dtmesh
@@ -235,6 +240,23 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   ``lgmres`` on the card unpacked as the JAX result and
                   buffer; ``native.lgmres_csr``'s ``outer_cycles`` equal to
                   the CPU run's.
+38. stream_ladder — the card's own read, write and copy ceilings through the
+                  three kernels of ``ops/csrc/stream_ladder.cu`` (the JAX
+                  tools' ``read_kernel``, ``write_kernel``, ``copy_kernel``,
+                  ``make_pipeline``, ``grid_copy``): every configuration of
+                  the JAX mains at 8192^2 f32 and a few at 2048^2 f32
+                  (L2-resident) and 4096^2 f64 (``stream_row`` lines), each
+                  against its plain version (writes and copies bit for bit,
+                  reads within nchunks x eps of the summed magnitudes),
+                  with event ms, graph ms, plain ms, ``Tensor.copy_``'s ms
+                  for the copies and the bytes bound (``check_bound`` above
+                  the L2); then the tools' entry points with the launch
+                  counts read around them: ``tools.stream_ladder.ladder`` at
+                  8192^2 and each pipeline and grid copy chained 20 times.
+                  The summary line carries the measured triad, the
+                  denominator, the L2 verdict by size and the copy ceiling
+                  (the best 8192^2 copy rate), which every row of the
+                  kernel line is also taken as a share of.
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -243,15 +265,17 @@ and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2.
 Every kernel row carries two times per call: ``ms`` (CUDA events around
 batches of back-to-back calls through the wrapper, its host time included)
 and ``device_ms`` (a CUDA-graph replay of captured calls: the device alone).
-Where a row's bytes exceed the card's L2, ``device_ms`` below 0.95 of
-``bound_ms`` fails the run: the bound would be counting too much.
+Every bound divides bytes by ``utils/roofline.roofline_denominator_gbps()``
+(the larger of the card's spec rate and its measured triad).  Where a
+row's bytes exceed the card's L2 (``device_vmem_bytes()``), ``device_ms``
+below 0.95 of ``bound_ms`` fails the run: the bound would be counting too
+much.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -261,8 +285,6 @@ N = 1024
 DT = 1e-9          # the large-grid example's first step
 DT_MAIN = 5e-8     # where the long-run controller is after ~20 steps
 DROPS = [(0.0, 0.0, 1.0, 1.0), (3.0, 0.0, 1.0, 1.0)]
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-L2_BYTES = 50e6                # H100 L2: a larger working set streams from HBM
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 F64_FLOP_PER_S = 34e12         # H100 SXM f64 outside the tensor cores
 # f32 operations of the linearised chain per grid point, counted from
@@ -293,13 +315,6 @@ def emit(obj: dict):
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 15, batch: int = 10, warmup: int = 3) -> float:
@@ -379,35 +394,6 @@ def device_profile(fn, top: int = 6) -> dict:
             "top_device_calls": {k: calls[k] for k, _ in kernels}}
 
 
-def device_ms(fn, calls: int = 10, reps: int = 7) -> float:
-    """Device time per call of ``fn()``: ``calls`` back-to-back calls are
-    captured into one CUDA graph, and the median CUDA-event time of its
-    replays is divided by the count.  A replay enqueues the captured
-    kernels with no Python between them, so unlike :func:`cuda_ms` this
-    leaves out the time the device waits for the host's next enqueue.
-    ``fn`` must already have run once (nothing is built or copied to the
-    device while capturing)."""
-    import torch
-
-    graph = torch.cuda.CUDAGraph()
-    torch.cuda.synchronize()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    times.sort()
-    return times[len(times) // 2]
-
-
 def in_turns(new, old) -> dict:
     """Times of two versions of one kernel taken in turns in this process
     (old, new, new, old), so that both see the same card in the same state:
@@ -415,10 +401,12 @@ def in_turns(new, old) -> dict:
     (``device_ms``), each the mean of its two turns, the earlier version's
     under ``v1_``; the wrappers' host time per call in microseconds is what
     the events see beyond the device."""
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
     ms, dev = {"new": [], "old": []}, {"new": [], "old": []}
     for which, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
         ms[which].append(cuda_ms(fn))
-        dev[which].append(device_ms(fn))
+        dev[which].append(graph_ms(fn))
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     out = {"ms": mean(ms["new"]), "device_ms": mean(dev["new"]),
            "v1_ms": mean(ms["old"]), "v1_device_ms": mean(dev["old"]),
@@ -430,7 +418,8 @@ def in_turns(new, old) -> dict:
 
 
 def kernel_resources() -> dict:
-    """What the compiler and the card give the five redesigned kernels:
+    """What the compiler and the card give the five redesigned kernels and
+    the three stream kernels (at the ring's 115,712-byte cap):
     registers a thread, shared-memory bytes a block, local (spill) bytes a
     thread, resident blocks an SM, threads a block; the slab SpMM at the
     kernel bench's launch (13 terms, 8 right-hand sides, 2 halo rows); the
@@ -458,17 +447,34 @@ def kernel_resources() -> dict:
                        ("grid_dia_matvec_f32", lambda: lib.grid_dia_matvec_resources(0, 1, buf)),
                        ("grid_dia_matvec_f64", lambda: lib.grid_dia_matvec_resources(1, 1, buf)),
                        ("grid_dia_matvec_f64_scalar",
-                        lambda: lib.grid_dia_matvec_resources(1, 0, buf))):
+                        lambda: lib.grid_dia_matvec_resources(1, 0, buf)),
+                       ("stream_read_f32", lambda: lib.stream_ladder_resources(0, 0, buf)),
+                       ("stream_write_f32", lambda: lib.stream_ladder_resources(1, 0, buf)),
+                       ("staged_copy_f32", lambda: lib.stream_ladder_resources(2, 0, buf)),
+                       ("staged_copy_f64", lambda: lib.stream_ladder_resources(2, 1, buf))):
         err = call()
         check(err == 0, f"resources of {name}: CUDA error {err}")
         out[name] = dict(zip(keys, buf))
     return out
 
 
+def hbm_bytes_per_s() -> float:
+    """The rate every bytes bound divides by, in bytes/s:
+    ``utils/roofline.roofline_denominator_gbps()``, the larger of the card's
+    spec rate and its measured triad (measured once, at the ``roofline``
+    phase)."""
+    from iterative_solvers_tpu_torch.utils.roofline import roofline_denominator_gbps
+
+    return roofline_denominator_gbps() * 1e9
+
+
 def check_bound(label: str, dev_ms: float, bound_ms: float, nbytes: float):
-    """A kernel whose bytes do not fit the L2 cannot beat its bound: if it
+    """A kernel whose bytes do not fit the L2 (``utils/roofline
+    .working_set_exceeds_vmem`` at margin 1) cannot beat its bound: if it
     does, the bound counts more than the function needs."""
-    if nbytes > L2_BYTES:
+    from iterative_solvers_tpu_torch.utils.roofline import working_set_exceeds_vmem
+
+    if working_set_exceeds_vmem(nbytes, margin=1.0):
         check(dev_ms >= 0.95 * bound_ms,
               f"{label}: device time {dev_ms} ms under 0.95 of its bound {bound_ms} ms")
 
@@ -576,6 +582,7 @@ def stencil_kernel_rows(dev):
     import torch
     from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
     from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     plain = {"lap_periodic": lambda u, h, r: stencils.lap_periodic(u, h),
              "sh_operator": stencils.sh_linear_operator}
@@ -609,7 +616,7 @@ def stencil_kernel_rows(dev):
                   f"{kname} {label}: max err {err} > {gate} x {scale}")
             npts = shape[0] * shape[1]
             itemsize = u.element_size()
-            bytes_ms = 2 * itemsize * npts / HBM_BYTES_PER_S * 1e3
+            bytes_ms = 2 * itemsize * npts / hbm_bytes_per_s() * 1e3
             peak = F32_FLOP_PER_S if dtype == torch.float32 else F64_FLOP_PER_S
             ops_ms = STENCIL_FLOP_PER_POINT[kname] * npts / peak * 1e3
             if kname == "sh_operator":
@@ -625,7 +632,7 @@ def stencil_kernel_rows(dev):
                                         lambda: ps._sh_operator_v1(u, h, r)))
             else:
                 times = dict(ms=cuda_ms(lambda: kernel[kname](u, h, r)),
-                             device_ms=device_ms(lambda: kernel[kname](u, h, r)))
+                             device_ms=graph_ms(lambda: kernel[kname](u, h, r)))
             row = dict(
                 name=kname, shape=list(shape), dtype=str(dtype).removeprefix("torch."),
                 h=h, r=r, max_abs_err=err, scale=scale, gate=gate,
@@ -674,7 +681,7 @@ def stencil_bench(dev, n: int = 4096, chain: int = 20):
     check(all(v == chain + 2 for v in launches.values()),
           f"stencil bench launches {launches}, expected {chain + 2} each")
     emit({"phase": "stencil_bench", "n": n, "chain": chain, "ms_per_launch": out,
-          "bound_ms": 2 * 4 * n * n / HBM_BYTES_PER_S * 1e3, "launches": launches})
+          "bound_ms": 2 * 4 * n * n / hbm_bytes_per_s() * 1e3, "launches": launches})
     return launches
 
 
@@ -902,6 +909,7 @@ def spmv_row(kname, label, a, shape, nrhs, kernel, plain, library, gate,
     against ``old()`` too and the two are timed in turns (``v1_*``)."""
     import torch
     from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     want, got = plain(), kernel()
     torch.cuda.synchronize()
@@ -921,14 +929,14 @@ def spmv_row(kname, label, a, shape, nrhs, kernel, plain, library, gate,
     else:
         cost = spmv_kernel_cost(a.offsets, shape[0], shape[1], a.data.element_size())
     peak = F32_FLOP_PER_S if a.data.dtype == torch.float32 else F64_FLOP_PER_S
-    bound_ms, bound_by = cost.bound_ms(HBM_BYTES_PER_S, peak)
+    bound_ms, bound_by = cost.bound_ms(hbm_bytes_per_s(), peak)
     reps = 15 if shape[0] * shape[1] * nrhs <= 2 ** 25 else 7
     if old is not None:
         err_v1 = float((got - old()).abs().max())
         check(err_v1 <= gate * scale, f"{kname} {label}: off the earlier kernel by {err_v1}")
         times = dict(err_vs_v1=err_v1, **in_turns(kernel, old))
     else:
-        times = dict(ms=cuda_ms(kernel, reps=reps), device_ms=device_ms(kernel))
+        times = dict(ms=cuda_ms(kernel, reps=reps), device_ms=graph_ms(kernel))
     row = dict(name=kname, case=label, shape=list(shape), nrhs=nrhs,
                dtype=_dtype_tag(a.data.dtype), fields=nfields,
                max_abs_err=err, scale=scale, gate=gate, library_rel_err=lib_err,
@@ -1401,6 +1409,7 @@ def droplet_phases(dev):
     from iterative_solvers_tpu_torch.core.grid import Grid2D
     from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_apply_ref, jvp_matvec
     from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     # -- 3. prepare the 1024^2 state ----------------------------------------
     t0 = time.perf_counter()
@@ -1456,10 +1465,10 @@ def droplet_phases(dev):
         row = dict(max_abs_err=err, scale=scale)
         if timed_row:
             npts = grid.nx * grid.ny
-            bytes_ms = JVP_FIELDS_MOVED * 4 * npts / HBM_BYTES_PER_S * 1e3
+            bytes_ms = JVP_FIELDS_MOVED * 4 * npts / hbm_bytes_per_s() * 1e3
             ops_ms = JVP_FLOP_PER_POINT * npts / F32_FLOP_PER_S * 1e3
             row.update(ms=cuda_ms(lambda: jvp_matvec(v, stack, grid)),
-                       device_ms=device_ms(lambda: jvp_matvec(v, stack, grid)),
+                       device_ms=graph_ms(lambda: jvp_matvec(v, stack, grid)),
                        plain_ms=cuda_ms(lambda: jvp_apply_ref(v, stack, grid), reps=7),
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -2550,6 +2559,246 @@ def surface_phase(dev) -> dict:
     return launches
 
 
+STREAM_N = 8192                # tools/stream_ladder.py's field: 256 MB f32, far above the L2
+STREAM_L2_N = 2048             # 16 MB f32: read, write and copy stay in the L2
+STREAM_F64_N = 4096            # 128 MB f64
+# tools/stream_ladder.py main's (bm, slots) and tools/pallas_pipeline_experiment.py
+# main's (slots, depth, bm, halos); tools/pallas_grid_experiment.py's bm
+STREAM_LADDER = [(bm, s) for bm in (128, 256, 512) for s in (2, 4, 8) if s * bm <= 2048]
+STREAM_PIPELINES = [(2, 1, 128, True), (2, 1, 128, False), (2, 1, 256, True),
+                    (2, 1, 512, True), (3, 2, 128, True), (4, 3, 128, True),
+                    (4, 3, 256, True), (4, 2, 256, True), (6, 4, 128, True)]
+STREAM_GRID_BM = (128, 256, 512)
+STREAM_CHAIN = 20              # calls of each pipeline / grid copy on the main path
+STREAM_REPLACES = {
+    "stream_read": "tools/stream_ladder.py:104",
+    "stream_write": "tools/stream_ladder.py:157",
+    "staged_copy": "tools/stream_ladder.py:227; tools/pallas_pipeline_experiment.py:85; "
+                   "tools/pallas_grid_experiment.py:52",
+}
+
+
+def stream_cases(n: int, dtype, dev, full: bool):
+    """Phase 38's rows at one size: ``(kernel, config, call, plain, library,
+    bytes, moved)``: ``bytes`` the function needs (its bound), ``moved``
+    the bytes the kernel streams (its rate).  They differ for the read,
+    whose function folds only the first 8 rows of each chunk of ``u`` but
+    whose kernel loads all of it.  ``full``: every configuration of the JAX
+    mains, else two of the ladder's, one or two pipelines and one grid
+    copy."""
+    import torch
+    from iterative_solvers_tpu_torch.ops import stream_ladder as sl
+    from iterative_solvers_tpu_torch.tools import grid_experiment as tge
+    from iterative_solvers_tpu_torch.tools import pipeline_experiment as tpe
+    from iterative_solvers_tpu_torch.tools import stream_ladder as tsl
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    u = torch.randn((n, n), generator=g, dtype=dtype, device=dev)
+    tok = torch.randn((sl.HALO, n), generator=g, dtype=dtype, device=dev)
+    e = u.element_size()
+    dst = torch.empty_like(u)
+    ladder = STREAM_LADDER if full else [(128, 2), (256, 4) if dtype == torch.float32 else (128, 4)]
+    pipes = STREAM_PIPELINES if full else STREAM_PIPELINES[:1] + (
+        [] if dtype == torch.float32 else [(4, 3, 128, True)])
+    grids = (STREAM_GRID_BM if full else STREAM_GRID_BM[:1]) if dtype == torch.float32 else ()
+    cases = []
+    for bm, slots in ladder:
+        rk = tsl.read_kernel(n, n, bm, slots, dtype)
+        wk = tsl.write_kernel(n, n, bm, slots, dtype)
+        ck = tsl.copy_kernel(n, n, bm, slots, dtype)
+        cfg = {"bm": bm, "slots": slots}
+        folded = (n // bm) * sl.HALO * n * e   # the first 8 rows of each chunk
+        cases += [
+            ("stream_read", {**cfg, "tool": "read_kernel"}, lambda rk=rk: rk(u, tok),
+             lambda bm=bm: sl.read_plain(u, tok, bm), None,
+             folded + 2 * sl.HALO * n * e, n * n * e + 2 * sl.HALO * n * e),
+            ("stream_write", {**cfg, "tool": "write_kernel"}, lambda wk=wk: wk(tok),
+             lambda bm=bm: sl.write_plain(tok, n, bm), None, *[n * n * e + n * e] * 2),
+            ("staged_copy", {**cfg, "depth": slots - 1, "halos": False, "tool": "copy_kernel"},
+             lambda ck=ck: ck(u, tok), u.clone, lambda: dst.copy_(u), *[2 * n * n * e] * 2)]
+    for slots, depth, bm, halos in pipes:
+        op = tpe.make_pipeline(n, n, bm, dtype, slots, depth, halos)
+        cases.append(("staged_copy", {"bm": bm, "slots": slots, "depth": depth, "halos": halos,
+                                      "tool": "make_pipeline"},
+                      lambda op=op: op(u), u.clone, lambda: dst.copy_(u), *[2 * n * n * e] * 2))
+    for bm in grids:
+        op = tge.grid_copy(n, bm)
+        cases.append(("staged_copy", {"bm": bm, "slots": 2, "depth": 1, "halos": False,
+                                      "tool": "grid_copy"},
+                      lambda op=op: op(u), u.clone, lambda: dst.copy_(u), *[2 * n * n * e] * 2))
+    return cases, u, tok
+
+
+def stream_rows(dev) -> list:
+    """Phase 38a: each stream kernel against its plain version at every
+    configuration of the JAX mains at 8192^2 f32, and at a few at 2048^2
+    f32 (L2-resident) and 4096^2 f64: ``stream_write`` and
+    ``staged_copy`` equal bit for bit, ``stream_read`` within
+    nchunks x eps x max(|tok| + sum_c |u_c|) (two orders of summing
+    nchunks + 1 terms differ by at most that); CUDA-event ms, graph ms,
+    plain ms, the library copy's ms (``Tensor.copy_``, copy rows only), the
+    bound of the bytes the function needs at ``hbm_bytes_per_s()``
+    (``bound_ms``) and that of the bytes the kernel streams
+    (``stream_bound_ms``, its rate ``gbps``); ``check_bound`` of the
+    streamed bytes on every row whose stream exceeds the L2.  Also returns
+    the graph-replay rate of ``u.sum(0)`` at each size: PyTorch's read of
+    the bytes the read kernel streams."""
+    import torch
+    from iterative_solvers_tpu_torch.utils.roofline import working_set_exceeds_vmem
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
+    rows, sum_gbps = [], {}
+    for n, dtype, full in ((STREAM_N, torch.float32, True), (STREAM_L2_N, torch.float32, False),
+                           (STREAM_F64_N, torch.float64, False)):
+        cases, u, tok = stream_cases(n, dtype, dev, full)
+        tag = _dtype_tag(dtype)
+        sum_gbps[f"{n}x{n}_{tag}"] = u.numel() * u.element_size() / graph_ms(lambda: u.sum(0)) / 1e6
+        for kname, cfg, call, plain, library, nbytes, moved in cases:
+            label = f"{kname} {n}x{n} {tag} {cfg}"
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype, f"{label}: shape/dtype")
+            err = float((got - want).abs().max())
+            if kname == "stream_read":
+                nchunks = n // cfg["bm"]
+                scale = float((tok.abs() + u.abs().view(nchunks, cfg["bm"], n)[:, :8].sum(0)).max())
+                gate = nchunks * torch.finfo(dtype).eps * scale
+                check(bool(torch.isfinite(got).all()) and err <= gate,
+                      f"{label}: max err {err} > {gate}")
+            else:
+                gate = 0.0
+                check(torch.equal(got, want), f"{label}: not bit for bit its plain version")
+            del got, want
+            dms = graph_ms(call)
+            bound_ms = nbytes / hbm_bytes_per_s() * 1e3
+            stream_bound_ms = moved / hbm_bytes_per_s() * 1e3
+            row = dict(name=kname, shape=[n, n], dtype=tag, **cfg, max_abs_err=err, gate=gate,
+                       ms=cuda_ms(call, reps=7), device_ms=dms,
+                       plain_ms=cuda_ms(plain, reps=5), bound_ms=bound_ms, bound_by="bytes",
+                       library_ms=cuda_ms(library, reps=7) if library else None,
+                       library_device_ms=graph_ms(library) if library else None,
+                       bytes=nbytes, share_of_bound=bound_ms / dms, moved_bytes=moved,
+                       stream_bound_ms=stream_bound_ms, gbps=moved / dms / 1e6,
+                       exceeds_l2=working_set_exceeds_vmem(moved, margin=1.0))
+            check_bound(label, dms, stream_bound_ms, moved)
+            rows.append(row)
+            emit({"phase": "stream_row", **row})
+        del cases, u, tok
+    return rows, sum_gbps
+
+
+def stream_main_path(dev) -> dict:
+    """Phase 38b: the tools' own entry points, the launch counts read
+    around them: ``tools.stream_ladder.ladder`` at 8192^2 f32 (every
+    (kernel, bm, slots) of the JAX main, its marginal-chain ms and
+    graph-replay ms), then each ``make_pipeline`` configuration and each
+    ``grid_copy`` chained ``STREAM_CHAIN`` times on its own output (which
+    stays the field, bit for bit)."""
+    import torch
+    from iterative_solvers_tpu_torch.ops import stream_ladder as sl
+    from iterative_solvers_tpu_torch.tools import grid_experiment as tge
+    from iterative_solvers_tpu_torch.tools import pipeline_experiment as tpe
+    from iterative_solvers_tpu_torch.tools import stream_ladder as tsl
+
+    n = STREAM_N
+    u = torch.randn((n, n), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    ops = [(f"pipeline {c}", tpe.make_pipeline(n, n, c[2], torch.float32, *c[:2], c[3]))
+           for c in STREAM_PIPELINES]
+    ops += [(f"grid_copy bm={bm}", tge.grid_copy(n, bm)) for bm in STREAM_GRID_BM]
+    torch.cuda.synchronize()
+    sl.reset_launches()
+    ladder = tsl.ladder(n, reps=3)
+    chains = {}
+    for label, op in ops:
+        x = op(u)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(STREAM_CHAIN):
+            x = op(x)
+        b.record()
+        b.synchronize()
+        check(torch.equal(x, u), f"{label}: the chained copy is not the field")
+        chains[label] = a.elapsed_time(b) / STREAM_CHAIN
+    launches = {k: getattr(sl, k).launches for k in STREAM_REPLACES}
+    check(all(v > 0 for v in launches.values()), f"stream main path launches {launches}")
+    return {"ladder": ladder, "chain_ms": chains, "launches": launches}
+
+
+def stream_phase(dev) -> tuple:
+    """Phase 38: the card's read, write and copy ceilings through the
+    stream kernels (38a), then the tools' entry points with the launch
+    counts read around them (38b); one summary line.  Returns the rows,
+    the launches and the copy ceiling in GB/s: the best graph-replay rate
+    of any 8192^2 f32 copy row, the staged copies' or the library's."""
+    from iterative_solvers_tpu_torch.utils.roofline import (
+        device_vmem_bytes, measured_stream_gbps, roofline_denominator_gbps,
+        working_set_exceeds_vmem)
+
+    t0 = time.perf_counter()
+    rows, sum_gbps = stream_rows(dev)
+    main_path = stream_main_path(dev)
+    big = [r for r in rows if r["shape"][0] == STREAM_N and r["name"] == "staged_copy"]
+    ceiling = max([r["gbps"] for r in big]
+                  + [r["bytes"] / r["library_device_ms"] / 1e6 for r in big])
+    best = {k: max((r for r in rows if r["name"] == k and r["shape"][0] == STREAM_N),
+                   key=lambda r: r["gbps"]) for k in STREAM_REPLACES}
+    emit({"phase": "stream_ladder", "measured_stream_gbps": measured_stream_gbps(),
+          "roofline_denominator_gbps": roofline_denominator_gbps(),
+          "device_vmem_bytes": device_vmem_bytes(),
+          # a copy's working set (u and out) over the L2, and over 1.5 x it
+          # (the JAX function's default margin)
+          **{key: {f"{n}x{n}_{t}": working_set_exceeds_vmem(2 * n * n * e, margin=m)
+                   for n, t, e in ((STREAM_N, "f32", 4), (STREAM_L2_N, "f32", 4),
+                                   (STREAM_F64_N, "f64", 8))}
+             for key, m in (("exceeds_l2", 1.0), ("working_set_exceeds_vmem", 1.5))},
+          "copy_ceiling_gbps": ceiling, "sum_gbps": sum_gbps,
+          "best_gbps": {k: {"gbps": r["gbps"], "tool": r["tool"], "bm": r["bm"],
+                            "slots": r["slots"]} for k, r in best.items()},
+          "chain_ms": main_path["chain_ms"], "launches": main_path["launches"],
+          "rows": len(rows), "seconds": time.perf_counter() - t0})
+    return rows, main_path["launches"], ceiling
+
+
+def with_shares(kernels: list, denom_gbps: float, copy_ceiling: float) -> list:
+    """The kernel line's entries with ``share_of_bound`` (bound over graph
+    ms) and ``share_of_copy_ceiling``: a bytes-bound entry's bytes
+    (bound ms x ``denom_gbps``) over its graph ms, as a share of phase 38's
+    copy ceiling (GB/s)."""
+    return [{**k, "share_of_bound": k["bound_ms"] / k["device_ms"],
+             "share_of_copy_ceiling": (k["bound_ms"] * denom_gbps / copy_ceiling / k["device_ms"]
+                                       if k["bound_by"] == "bytes" else None)}
+            for k in kernels]
+
+
+def stream_entries(rows: list, launches: dict, copy_ceiling: float) -> list:
+    """The kernel line's entries of the three stream kernels: each at its
+    8192^2 f32 ladder row at bm 128, slots 2 (the stencil kernels' tile),
+    with its best row at that size beside it.  ``bound_ms`` and
+    ``share_of_bound`` count the bytes the function needs;
+    ``share_of_copy_ceiling`` the kernel's stream rate (``gbps``, all the
+    bytes it moves) over the copy ceiling."""
+    numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+    out = []
+    for kname, replaces in STREAM_REPLACES.items():
+        mine = [r for r in rows if r["name"] == kname and r["shape"][0] == STREAM_N]
+        row = next(r for r in mine if r["bm"] == 128 and r["slots"] == 2
+                   and r["tool"] in ("read_kernel", "write_kernel", "copy_kernel"))
+        best = max(mine, key=lambda r: r["gbps"])
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "iterative_solvers_tpu_torch/ops/csrc/stream_ladder.cu",
+            "replaces": replaces, "launches": launches[kname],
+            **{k: row[k] for k in numbers}, "shape": row["shape"], "dtype": row["dtype"],
+            "bm": row["bm"], "slots": row["slots"], "share_of_bound": row["share_of_bound"],
+            "gbps": row["gbps"], "share_of_copy_ceiling": row["gbps"] / copy_ceiling,
+            "best": {k: best[k] for k in ("tool", "bm", "slots", "device_ms", "bound_ms",
+                                          "gbps", "share_of_bound")}})
+    return out
+
+
 def final_phases(dev, inflated, touchdown, tmp: pathlib.Path) -> dict:
     """Phases 31-36 from phase 18's inflated 91x61 state and phase 22's
     touchdown steps; returns their kernel launches by phase."""
@@ -2571,6 +2820,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from iterative_solvers_tpu_torch import resolve_device
     from iterative_solvers_tpu_torch.ops import _build
+    from iterative_solvers_tpu_torch.utils.timing import nvidia_smi
 
     # -- 1. device ---------------------------------------------------------
     smi = nvidia_smi()
@@ -2592,6 +2842,16 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     emit({"phase": "resources", **kernel_resources()})
+
+    # the rate every bytes bound divides by, measured once here
+    from iterative_solvers_tpu_torch.utils import roofline
+
+    t0 = time.perf_counter()
+    emit({"phase": "roofline", "device_hbm_gbps": roofline.device_hbm_gbps(),
+          "measured_stream_gbps": roofline.measured_stream_gbps(),
+          "roofline_denominator_gbps": roofline.roofline_denominator_gbps(),
+          "device_vmem_bytes": roofline.device_vmem_bytes(),
+          "seconds": time.perf_counter() - t0})
 
     kstats, launches_main, prepared = droplet_phases(dev)
 
@@ -2627,6 +2887,9 @@ def main() -> int:
     # -- 37. the JAX package's public API on the port -------------------------------
     final["surface"] = surface_phase(dev)
     final_sh = {k: sum(final[k].values()) for k in ("sh_full_experiment", "native", "surface")}
+
+    # -- 38. the card's own stream ceiling: the tools' stream kernels ----------------
+    ladder_rows, ladder_launches, copy_ceiling = stream_phase(dev)
 
     big = kstats[f"{N}x{N}"]
     numbers = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2678,7 +2941,7 @@ def main() -> int:
     spmm_case = f"sh_cyclic_{SP_N2}_x8_f32"
 
     sh64 = rows["sh_operator", f"{SH_N}x{SH_N}_f64"]
-    emit({"kernels": [
+    kernels = [
         {"name": "droplet_jvp", "route": "cuda",
          "source": "iterative_solvers_tpu_torch/ops/csrc/droplet_jvp.cu",
          "replaces": "iterative_solvers_tpu/ops/pallas_droplet.py:534",
@@ -2725,7 +2988,11 @@ def main() -> int:
                    bench_launches=sp_bench_launches["dia_flat_matvec"]),
         spmm_entry("grid_dia_matmat", 279),
         spmm_entry("grid_dia_matmat_interleaved", 279),
-    ]})
+    ]
+    denom = hbm_bytes_per_s() / 1e9
+    kernels = [*with_shares(kernels, denom, copy_ceiling),
+               *stream_entries(ladder_rows, ladder_launches, copy_ceiling)]
+    emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,16 +1,36 @@
-"""Byte and operation counts of the hot kernels
-(port of the cost models of ``iterative_solvers_tpu/utils/roofline.py``).
+"""Byte and operation counts of the hot kernels, and the device's memory
+rate and on-chip size (port of ``iterative_solvers_tpu/utils/roofline.py``).
 
 Stencil application and SpMV are bound by device-memory traffic; these
 helpers count the bytes each call must move (every input read once, every
 output written once) and its operations, and turn a measured time into an
-achieved rate.  :class:`CommStats` and the halo models count the
-distribution layer's traffic.  They hold no hardware table: the caller
-divides by the rate of the card it measured on.
+achieved rate.  :func:`roofline_denominator_gbps` is the rate a fraction is
+taken of: the larger of the card's spec (:data:`HBM_GBPS`) and its measured
+streaming rate (:func:`measured_stream_gbps`); :func:`working_set_exceeds_vmem`
+says when a working set is too large to stay in the card's on-chip cache
+across a timing chain, the precondition for quoting a fraction of device
+memory's rate.  :class:`CommStats` and the halo models count the
+distribution layer's traffic.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+
+# Device-memory rates in GB/s, keyed by a lower-case part of
+# ``torch.cuda.get_device_name`` (spec sheets: H100 SXM 3.35 TB/s, H200
+# 4.8 TB/s); "cpu" is the JAX package's figure for its CPU backend.
+HBM_GBPS = {"h100 80gb hbm3": 3350.0, "h200": 4800.0, "cpu": 50.0}
+# The on-chip level a timing chain can stay resident in: on the JAX
+# package's TPUs the VMEM, on these cards the 50 MB L2 cache (a working set
+# below it is served from the L2 between back-to-back calls, so its rate
+# can exceed device memory's); "cpu" is the JAX package's 16 MiB default.
+VMEM_BYTES = {"h100 80gb hbm3": 50_000_000, "h200": 50_000_000, "cpu": 16 * 2**20}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +106,93 @@ def spmv_kernel_cost(terms, ny: int, nx: int, dtype_bytes: int,
     coeffs = coefficients_read(terms, ny, nx, cyclic)
     return KernelCost(bytes_moved=(coeffs + 2 * nrhs * n) * dtype_bytes,
                       flops=2 * coeffs * nrhs)
+
+
+def _device_entry(table: dict, what: str, device) -> float:
+    """``table``'s entry for ``device``: "cpu" for a CPU device, else the
+    first key that is part of the card's lower-case name.  A card absent
+    from the table raises (no CPU figure stands in for it)."""
+    dev = resolve_device(device)
+    kind = "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev).lower()
+    for k, v in table.items():
+        if k in kind:
+            return v
+    raise KeyError(f"no {what} for {kind!r}: add the card to utils/roofline.py")
+
+
+def device_vmem_bytes(device="cuda") -> int:
+    """Bytes of the on-chip level a timing chain can stay resident in
+    (:data:`VMEM_BYTES`: the L2 cache on a GPU)."""
+    return _device_entry(VMEM_BYTES, "on-chip size", device)
+
+
+def working_set_exceeds_vmem(bytes_total: int, margin: float = 1.5, device="cuda") -> bool:
+    """True when a timing chain over this working set must stream from
+    device memory (set > margin x the on-chip size) — the precondition for
+    quoting a fraction of device memory's rate."""
+    return bytes_total > margin * device_vmem_bytes(device)
+
+
+def device_hbm_gbps(device="cuda") -> float:
+    """The card's spec device-memory rate in GB/s (:data:`HBM_GBPS`)."""
+    return _device_entry(HBM_GBPS, "memory rate", device)
+
+
+_HBM_MEASURED: dict = {}
+
+
+def measured_stream_gbps(n: int = 8192, reps: int = 5, device="cuda") -> float:
+    """Measured streaming rate of device memory in GB/s: a chained f32
+    triad ``v = v + x`` over two ``(n, n)`` fields (3 n^2 x 4 B a call,
+    in place), timed by the marginal-cost method: the median of ``reps``
+    runs of a chain of 80 calls less that of a chain of 10, over 70.  On a
+    GPU each chain is one CUDA-graph replay, so the host's launch time
+    drops out; on the CPU it is a loop.  Cached per process on
+    ``(n, reps, device)``.  The spec figure is not always the card's
+    ceiling either way, so roofline denominators use ``max(spec,
+    measured)`` (:func:`roofline_denominator_gbps`)."""
+    dev = resolve_device(device)
+    key = (n, reps, str(dev))
+    if key in _HBM_MEASURED:
+        return _HBM_MEASURED[key]
+    x = torch.full((n, n), 1e-9, dtype=torch.float32, device=dev)
+    v = torch.zeros((n, n), dtype=torch.float32, device=dev)
+
+    def chain(k):
+        if dev.type == "cpu":
+            return lambda: [v.add_(x) for _ in range(k)]
+        v.add_(x)  # warm-up before capture
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(k):
+                v.add_(x)
+        return graph.replay
+
+    def run(k):
+        fn = chain(k)
+        fn()
+        ts = []
+        for _ in range(reps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    t = (run(80) - run(10)) / 70.0
+    _HBM_MEASURED[key] = 3 * n * n * 4 / t / 1e9
+    return _HBM_MEASURED[key]
+
+
+def roofline_denominator_gbps(device="cuda") -> float:
+    """The roofline denominator: max(spec, measured stream) — a fraction of
+    this can never exceed 1.0 for a kernel that streams from device
+    memory."""
+    return max(device_hbm_gbps(device), measured_stream_gbps(device=device))
 
 
 # -- communication accounting --------------------------------------------------

@@ -19,8 +19,10 @@ file walks the whole surface:
   equal default, the JAX positional parameters come first and in the JAX
   order, a parameter only the port has carries a default, and NamedTuple
   and dataclass fields are in the JAX order; the CLI's subcommands take
-  every JAX flag with its default.  ``DEVIATIONS`` holds what the walk
-  lets differ, each entry a deviation that ``ROADMAP.md`` states;
+  every JAX flag with its default; the JAX ``tools/`` stream kernels
+  (``TOOLS``, read with ``ast``) against the port's ``tools`` subpackage
+  the same way.  ``DEVIATIONS`` holds what the walk lets differ, each
+  entry a deviation that ``ROADMAP.md`` states;
 - (d) behaviour: ``PMAParams`` built positionally, ``lgmres``'s result
   and recycle buffer unpacked positionally, ``init_recycle`` unpacked.
 """
@@ -55,7 +57,8 @@ PORT_MODULE = {
 # ``port`` the port's name for it (its signature is not compared),
 # ``absent`` not carried, ``signature`` not compared, ``extra`` parameters
 # or fields only the port has, ``rename`` JAX -> port parameter names,
-# ``required`` JAX parameters with a default that the port requires.
+# ``required`` JAX parameters with a default that the port requires,
+# ``dropped`` JAX parameters the port does not take.
 DEVIATIONS = {
     # The Pallas wrappers are named after their CUDA kernels; their TPU DMA
     # knobs (block_rows, slots, streams, mode, inplace) have no counterpart.
@@ -70,13 +73,6 @@ DEVIATIONS = {
     # The CPU rehearsal of the TPU kernel's DMA chain blocks; the CUDA
     # kernel's tiling is rehearsed by its own simulation.
     "ops.pallas_droplet.chain_block_reference_sim": {"port": "jvp_apply_tiled_sim"},
-    # utils/roofline's TPU tables are not carried: the H100's rates are the
-    # smoke run's constants.
-    "utils.roofline.device_vmem_bytes": {"absent": True},
-    "utils.roofline.working_set_exceeds_vmem": {"absent": True},
-    "utils.roofline.device_hbm_gbps": {"absent": True},
-    "utils.roofline.measured_stream_gbps": {"absent": True},
-    "utils.roofline.roofline_denominator_gbps": {"absent": True},
     # reads an XLA program's text; dist/comm.py counts the same calls
     "utils.roofline.comm_stats_from_compiled": {"absent": True},
     # counts the port kernels' needed coefficients, not the TPU slab
@@ -101,6 +97,9 @@ DEVIATIONS = {
     # the long-run driver's option parser is examples.split_args, shared by
     # the port's six drivers
     "examples.droplet_longrun.parse_opts": {"absent": True},
+    # the TPU kernel's scoped VMEM limit: the card's ring is sized to a
+    # block's shared memory
+    "tools.pallas_pipeline_experiment.make_pipeline": {"dropped": ("vmem_mb",)},
 }
 
 
@@ -186,6 +185,9 @@ def test_subpackage_imports_load_no_jax_and_build_nothing():
         "import iterative_solvers_tpu_torch.models as m\n"
         "import iterative_solvers_tpu_torch.ops, iterative_solvers_tpu_torch.meshmove\n"
         "import iterative_solvers_tpu_torch.dist\n"
+        "import iterative_solvers_tpu_torch.tools.stream_ladder\n"
+        "import iterative_solvers_tpu_torch.tools.pipeline_experiment\n"
+        "import iterative_solvers_tpu_torch.tools.grid_experiment\n"
         "m.droplet, m.mems\n"
         "import torch\n"
         "from iterative_solvers_tpu_torch.ops import _build\n"
@@ -237,8 +239,11 @@ def _compare_params(where: str, jparams: list, tsig: inspect.Signature, dev: dic
     rename = dev.get("rename", {})
     extra = set(dev.get("extra", ()))
     required = set(dev.get("required", ()))
+    dropped = set(dev.get("dropped", ()))
     tparams = {p.name: p for p in tsig.parameters.values()}
-    problems = []
+    problems = [f"{where}: {name!r} is listed as dropped, but the port takes it"
+                for name in dropped & set(tparams)]
+    jparams = [p for p in jparams if p[0] not in dropped]
     jnames = []
     for name, kind, default in jparams:
         tname = rename.get(name, name)
@@ -391,6 +396,47 @@ def _walk_example(mod: str) -> list:
 
 WALKED = _package_modules() + _example_modules()
 
+# JAX tools/ script -> (the port's tools module, the functions it carries):
+# the stream kernels' factories (T1-T5) and the ladder's chain timer
+TOOLS = {
+    "stream_ladder": ("stream_ladder",
+                      ("read_kernel", "write_kernel", "copy_kernel", "time_chain")),
+    "pallas_pipeline_experiment": ("pipeline_experiment", ("make_pipeline",)),
+    "pallas_grid_experiment": ("grid_experiment", ("grid_copy",)),
+}
+
+
+def _ast_default(node):
+    """A default read from source: a literal, or a ``jnp`` / ``np`` dtype
+    by its name (the port's torch dtype normalises to the same)."""
+    if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) \
+            and node.value.id in ("jnp", "np"):
+        return node.attr
+    return ast.literal_eval(node)
+
+
+def _walk_tool(script: str) -> list:
+    """The JAX tool's functions against the port's, read with ``ast``:
+    the scripts set JAX options when imported."""
+    port, names = TOOLS[script]
+    tree = ast.parse((ROOT / "tools" / f"{script}.py").read_text())
+    tm = importlib.import_module(f"{PORT_PKG}.tools.{port}")
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    problems = []
+    for name in names:
+        a = fns[name].args
+        defaults = [_EMPTY] * (len(a.args) - len(a.defaults)) + [_ast_default(d)
+                                                               for d in a.defaults]
+        jparams = [(p.arg, inspect.Parameter.POSITIONAL_OR_KEYWORD, d)
+                   for p, d in zip(a.args, defaults)]
+        if not hasattr(tm, name):
+            problems.append(f"tools.{script}.{name}: missing from {tm.__name__}")
+        else:
+            where = f"tools.{script}.{name}"
+            problems += _compare_params(where, jparams, inspect.signature(getattr(tm, name)),
+                                        DEVIATIONS.get(where, {}))
+    return problems
+
 
 @pytest.mark.parametrize("mod", WALKED)
 def test_api_walk_matches_jax(mod):
@@ -398,12 +444,19 @@ def test_api_walk_matches_jax(mod):
     assert not problems, "\n".join(problems)
 
 
+@pytest.mark.parametrize("script", list(TOOLS))
+def test_tools_walk_matches_jax(script):
+    problems = _walk_tool(script)
+    assert not problems, "\n".join(problems)
+
+
 def test_deviations_name_jax_objects():
     """Every entry of ``DEVIATIONS`` names something the JAX package has."""
     for key in DEVIATIONS:
         mod, _, name = key.rpartition(".")
-        if mod.startswith("examples."):
-            tree = ast.parse((ROOT / "examples" / f"{mod.split('.')[1]}.py").read_text())
+        if mod.startswith(("examples.", "tools.")):
+            top, script = mod.split(".")
+            tree = ast.parse((ROOT / top / f"{script}.py").read_text())
             assert name in {n.name for n in tree.body if hasattr(n, "name")}, key
         else:
             assert hasattr(importlib.import_module(f"{JAX_PKG}.{mod}"), name), key

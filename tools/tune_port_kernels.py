@@ -6,7 +6,7 @@ one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
 memory), checks every variant against the plain PyTorch version, and times
-it in a CUDA-graph replay of 10 captured calls (``chip_smoke.device_ms``:
+it in a CUDA-graph replay of 10 captured calls (``utils/timing.graph_ms``:
 the device alone), the chosen design (``droplet``) or the earlier design
 (``sh``, ``spmm``) first and last:
 
@@ -130,6 +130,7 @@ def tune_droplet(dev):
     import torch
     from iterative_solvers_tpu_torch.core.grid import Grid2D
     from iterative_solvers_tpu_torch.ops import _build, droplet_jvp as dj
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     ptxas_report(_build.CSRC / "droplet_jvp.cu")
     tile_fn = _build.c_function("droplet_jvp_tile_f32", dj._ARGS + [ctypes.c_int])
@@ -157,7 +158,7 @@ def tune_droplet(dev):
             got = fn()
             torch.cuda.synchronize()
             row = {"phase": "tune_droplet", "n": n, "variant": label,
-                   "device_ms": cs.device_ms(fn)}
+                   "device_ms": graph_ms(fn)}
             if label not in JVP_PROBES.values():  # a probe's output is not J v
                 err = float((got - want).abs().max())
                 row["rel_err"] = err / scale
@@ -170,6 +171,7 @@ def tune_sh(dev):
     import torch
     from iterative_solvers_tpu_torch.ops import _build, periodic_stencil as ps
     from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     ptxas_report(_build.CSRC / "periodic_stencil.cu")
     args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -202,7 +204,7 @@ def tune_sh(dev):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             cs.emit({"phase": "tune_sh", "n": n, "dtype": tag, "variant": label,
-                     "rel_err": err / scale, "device_ms": cs.device_ms(fn)})
+                     "rel_err": err / scale, "device_ms": graph_ms(fn)})
             cs.check(err <= gate * scale, f"{label} at {n} {tag}: error {err} on {scale}")
 
 
@@ -223,23 +225,24 @@ def stream_reference(dev, nbytes: float):
     ``nbytes``: a copy (read once, write once) and an add (two reads, one
     write), in graph replay."""
     import torch
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     n = int(nbytes / 8)
     a = torch.ones(n, device=dev)
     b = torch.ones(n, device=dev)
     out = torch.empty(n, device=dev)
-    ms = cs.device_ms(lambda: out.copy_(a))
+    ms = graph_ms(lambda: out.copy_(a))
     cs.emit({"phase": "tune_spmm", "variant": "torch_copy", "bytes": 8 * n,
              "device_ms": ms, "tb_per_s": 8 * n / ms / 1e9})
     r = torch.ones(int(nbytes * 352 / 486.5 / 4), device=dev)  # the SpMM's reads alone
     nr = r.numel()
-    ms = cs.device_ms(lambda: r.sum())
+    ms = graph_ms(lambda: r.sum())
     cs.emit({"phase": "tune_spmm", "variant": "torch_sum", "bytes": 4 * nr,
              "device_ms": ms, "tb_per_s": 4 * nr / ms / 1e9})
     del r
     n3 = int(nbytes / 12)
     a, b, out = a[:n3], b[:n3], out[:n3]
-    ms = cs.device_ms(lambda: torch.add(a, b, out=out))
+    ms = graph_ms(lambda: torch.add(a, b, out=out))
     cs.emit({"phase": "tune_spmm", "variant": "torch_add", "bytes": 12 * n3,
              "device_ms": ms, "tb_per_s": 12 * n3 / ms / 1e9})
 
@@ -249,6 +252,7 @@ def tune_spmm(dev):
     import torch
     from iterative_solvers_tpu_torch.ops import spmv
     from iterative_solvers_tpu_torch.ops.sparse import GridDIA
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     ptxas_report(TUNING_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -287,7 +291,7 @@ def tune_spmm(dev):
             got = fn()
             torch.cuda.synchronize()
             row = {"phase": "tune_spmm", "n": n, "nrhs": 8, "variant": label,
-                   "device_ms": cs.device_ms(fn)}
+                   "device_ms": graph_ms(fn)}
             if label not in SPMM_PROBES.values():  # a probe's output is not A X
                 if label.endswith("interleaved"):
                     got = got.movedim(1, 0)
@@ -326,6 +330,7 @@ def tune_spmv(dev):
     from iterative_solvers_tpu_torch.ops import spmv
     from iterative_solvers_tpu_torch.ops.sparse import GridDIA
     from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     ptxas_report(TUNING_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -344,7 +349,7 @@ def tune_spmv(dev):
         gate = 1e-5 if tag == "f32" else 1e-12
         cost = spmv_kernel_cost(a.shifts, n, n, a.data.element_size(), cyclic=cyclic)
         peak = cs.F32_FLOP_PER_S if tag == "f32" else cs.F64_FLOP_PER_S
-        bound_ms, _ = cost.bound_ms(cs.HBM_BYTES_PER_S, peak)
+        bound_ms, _ = cost.bound_ms(cs.hbm_bytes_per_s(), peak)
         terms = spmv._grid_terms(a.shifts, a.grid, a.cyclic, dev)
         out = torch.empty_like(x)
         fn_c = tuning_function(f"grid_dia_matvec_variant_{tag}", [p, p, i, p, p, i, i, p, i])
@@ -365,7 +370,7 @@ def tune_spmv(dev):
         for label, fn in runs:
             got = fn()
             torch.cuda.synchronize()
-            ms = cs.device_ms(fn)
+            ms = graph_ms(fn)
             row = {"phase": "tune_spmv", "case": case, "fields": len(a.shifts),
                    "terms": terms.shape[0], "variant": label, "device_ms": ms,
                    "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
@@ -402,6 +407,7 @@ def tune_general(dev, nrhs: int = 8):
     from iterative_solvers_tpu_torch.ops import spmv
     from iterative_solvers_tpu_torch.ops.sparse import GridDIA
     from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     ptxas_report(TUNING_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -417,7 +423,7 @@ def tune_general(dev, nrhs: int = 8):
         gate = 1e-5 if tag == "f32" else 1e-12
         cost = spmv_kernel_cost(a.shifts, n, n, a.data.element_size(), nrhs)
         peak = cs.F32_FLOP_PER_S if tag == "f32" else cs.F64_FLOP_PER_S
-        bound_ms, _ = cost.bound_ms(cs.HBM_BYTES_PER_S, peak)
+        bound_ms, _ = cost.bound_ms(cs.hbm_bytes_per_s(), peak)
         terms = spmv._grid_terms(a.shifts, a.grid, a.cyclic, dev)
         out = torch.empty_like(x3)
         fn_c = tuning_function(f"grid_dia_matmat_general_variant_{tag}",
@@ -441,7 +447,7 @@ def tune_general(dev, nrhs: int = 8):
         for label, fn in runs:
             got = fn()
             torch.cuda.synchronize()
-            ms = cs.device_ms(fn)
+            ms = graph_ms(fn)
             row = {"phase": "tune_general", "case": case, "fields": len(a.shifts),
                    "terms": terms.shape[0], "nrhs": nrhs, "variant": label, "device_ms": ms,
                    "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
@@ -463,9 +469,10 @@ def main() -> int:
         print("tune_port_kernels: needs one CUDA device", file=sys.stderr)
         return 2
     from iterative_solvers_tpu_torch.ops import _build
+    from iterative_solvers_tpu_torch.utils.timing import nvidia_smi
 
     which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general"]
-    print(cs.nvidia_smi(), flush=True)
+    print(nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
     if "droplet" in which:
