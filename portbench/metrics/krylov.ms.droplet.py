@@ -1,0 +1,6 @@
+"""``krylov.ms`` under the name the droplet cells report it by: there the
+end-to-end metric is ``device_ms``, and the host-bound step time is a
+per-layer metric, ``step_ms.droplet``."""
+from portbench.run import reader_beside
+
+read = reader_beside(__file__, "krylov.ms").read
