@@ -25,7 +25,9 @@ layout and function names so each counterpart is easy to find:
 - ``io``       — the golden fixture state, checkpoints (whole and sharded),
                  and conversion of JAX-side state
 - ``utils``    — byte and operation counts of the hot kernels and of the
-                 collectives, metrics, timers, offline rendering
+                 collectives, metrics, timers, the host loops' spans and
+                 counters (``utils.trace``, off by default), offline
+                 rendering
 - ``cli``      — ``python -m iterative_solvers_tpu_torch.cli
                  {sh,droplet,mems,poisson}``
 - ``examples`` — the JAX package's six drivers (the large-grid droplet

@@ -21,6 +21,7 @@ import torch
 from ..core.grid import Grid2D
 from ..ops import curvilinear
 from ..ops.dct import dct2, idct2
+from ..utils.trace import span, to_host
 from .monitor import smooth_and_regularise
 
 
@@ -172,20 +173,23 @@ def loop_pma(q, u, dt: float, loops: int, grid: Grid2D, params: PMAParams,
     potential: one update ``dt * dqdt`` is ~1e-9 of ``q``, below the f32
     ULP, so casting ``q`` itself would quantise the updates away.
     """
-    if params.mesh_dtype is None:
-        for _ in range(loops):
-            q = q + dt * pma_dqdt(q, u, grid, params, monitor_source,
-                                  geometry_fn)
-        return q
+    with span("pma.loop"):
+        if params.mesh_dtype is None:
+            for _ in range(loops):
+                with span("pma.substep"):
+                    q = q + dt * pma_dqdt(q, u, grid, params, monitor_source,
+                                          geometry_fn)
+            return q
 
-    md = _dtype(params.mesh_dtype)
-    q0 = q.to(md)
-    um = u.to(md)
-    acc = torch.zeros_like(q0)
-    for _ in range(loops):
-        acc = acc + dt * pma_dqdt(q0 + acc, um, grid, params,
-                                  monitor_source, geometry_fn)
-    return q + acc.to(q.dtype)
+        md = _dtype(params.mesh_dtype)
+        q0 = q.to(md)
+        um = u.to(md)
+        acc = torch.zeros_like(q0)
+        for _ in range(loops):
+            with span("pma.substep"):
+                acc = acc + dt * pma_dqdt(q0 + acc, um, grid, params,
+                                          monitor_source, geometry_fn)
+        return q + acc.to(q.dtype)
 
 
 def mesh_steady_state(q, u, dt: float, grid: Grid2D, params: PMAParams,
@@ -201,8 +205,8 @@ def mesh_steady_state(q, u, dt: float, grid: Grid2D, params: PMAParams,
     while diff >= atol and i < max_iters:
         q = q + dt * pma_dqdt(q, u, grid, params, monitor_source)
         geom = curvilinear.mesh_geometry(q, grid)
-        diff = torch.max(torch.sqrt((geom.x - x_old) ** 2
-                                    + (geom.y - y_old) ** 2)).item()
+        diff = to_host(torch.max(torch.sqrt((geom.x - x_old) ** 2
+                                            + (geom.y - y_old) ** 2)))
         x_old, y_old = geom.x, geom.y
         i += 1
     return q, i, diff < atol

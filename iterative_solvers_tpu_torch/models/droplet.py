@@ -29,6 +29,7 @@ from ..ops import curvilinear, stencils
 from ..ops.curvilinear import MeshGeometry
 from ..ops.droplet_jvp import jvp_matvec
 from ..solvers.newton import NewtonKrylov
+from ..utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,44 +422,45 @@ def make_step(cfg: DropletConfig, dt: float, dtmesh: float, pma_loops: int,
     def step(u, q, dt_n, dtmesh_n=None, x0=None):
         # ``dtmesh_n`` overrides the static ``dtmesh``; ``x0`` overrides the
         # Newton initial guess (the reference starts from u_old)
-        u = torch.as_tensor(u, device=dev)
-        q = torch.as_tensor(q, device=dev)
-        geom = geometry_fn(q, grid)
-        F = pde_rhs(u, geom, cfg)
-        slv = solver
-        if jvp_dtype is not None:
-            jd = getattr(torch, jvp_dtype)
-            geom_j = MeshGeometry(*(a.to(jd) for a in geom))
-            u_j, F_j = u.to(jd), F.to(jd)
-            dt_j = torch.tensor(dt_n, dtype=jd, device=dev)
+        with span("step"):
+            u = torch.as_tensor(u, device=dev)
+            q = torch.as_tensor(q, device=dev)
+            geom = geometry_fn(q, grid)
+            F = pde_rhs(u, geom, cfg)
+            slv = solver
+            if jvp_dtype is not None:
+                jd = getattr(torch, jvp_dtype)
+                geom_j = MeshGeometry(*(a.to(jd) for a in geom))
+                u_j, F_j = u.to(jd), F.to(jd)
+                dt_j = torch.tensor(dt_n, dtype=jd, device=dev)
 
-            if jvp_kernel:
-                def factory(x, fx):
-                    stack = jvp_field_stack(x.to(jd), geom_j, cfg, dt_j)
-                    return lambda v: jvp_matvec(v, stack, grid)
+                if jvp_kernel:
+                    def factory(x, fx):
+                        stack = jvp_field_stack(x.to(jd), geom_j, cfg, dt_j)
+                        return lambda v: jvp_matvec(v, stack, grid)
+                else:
+                    def factory(x, fx):
+                        x_j = x.to(jd)
+
+                        def res_j(w):
+                            return cn_residual(w, u_old=u_j, F=F_j, dt=dt_j,
+                                               geom=geom_j, cfg=cfg)
+                        return lambda v: torch.func.jvp(res_j, (x_j,), (v,))[1]
+
+                slv = dataclasses.replace(solver, matvec_factory=factory,
+                                          inner_dtype=jvp_dtype)
+            if residual_mode == "df64":
+                rdf = make_cn_residual_df(u, F, geom, cfg)
+                res_fn = partial(rdf, dt=dt_n)
             else:
-                def factory(x, fx):
-                    x_j = x.to(jd)
-
-                    def res_j(w):
-                        return cn_residual(w, u_old=u_j, F=F_j, dt=dt_j,
-                                           geom=geom_j, cfg=cfg)
-                    return lambda v: torch.func.jvp(res_j, (x_j,), (v,))[1]
-
-            slv = dataclasses.replace(solver, matvec_factory=factory,
-                                      inner_dtype=jvp_dtype)
-        if residual_mode == "df64":
-            rdf = make_cn_residual_df(u, F, geom, cfg)
-            res_fn = partial(rdf, dt=dt_n)
-        else:
-            res_fn = partial(cn_residual, u_old=u, F=F, dt=dt_n, geom=geom,
-                             cfg=cfg)
-        res = slv.solve(res_fn, u if x0 is None else torch.as_tensor(x0, device=dev))
-        # reference ordering: the PMA monitor is driven by the *old* solution
-        q_new = loop_pma(q, u, dtmesh if dtmesh_n is None else dtmesh_n,
-                         pma_loops, grid, cfg.pma, monitor_source, geometry_fn)
-        return DropletStepResult(u=res.x, q=q_new, newton_iters=res.iters,
-                                 f_norm=res.f_norm, converged=res.converged)
+                res_fn = partial(cn_residual, u_old=u, F=F, dt=dt_n, geom=geom,
+                                 cfg=cfg)
+            res = slv.solve(res_fn, u if x0 is None else torch.as_tensor(x0, device=dev))
+            # reference ordering: the PMA monitor is driven by the *old* solution
+            q_new = loop_pma(q, u, dtmesh if dtmesh_n is None else dtmesh_n,
+                             pma_loops, grid, cfg.pma, monitor_source, geometry_fn)
+            return DropletStepResult(u=res.x, q=q_new, newton_iters=res.iters,
+                                     f_norm=res.f_norm, converged=res.converged)
 
     return step
 

@@ -31,6 +31,7 @@ from .. import resolve_device
 from ..ops.periodic_stencil import sh_operator_kernel
 from ..solvers.gmres import GmresResult, gmres
 from ..solvers.newton import NewtonKrylov, NewtonResult
+from ..utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,11 +118,12 @@ def make_cn_step(cfg: SHConfig, solver: NewtonKrylov | None = None,
         solver = NewtonKrylov(maxiter=100)
 
     def step(u_old) -> tuple[torch.Tensor, NewtonResult]:
-        u_old = torch.as_tensor(u_old, device=dev)
-        L_uold = apply_L(u_old, cfg)
-        res = solver.solve(partial(cn_residual, u_old=u_old, L_uold=L_uold,
-                                   cfg=cfg), u_old)
-        return res.x, res
+        with span("step"):
+            u_old = torch.as_tensor(u_old, device=dev)
+            L_uold = apply_L(u_old, cfg)
+            res = solver.solve(partial(cn_residual, u_old=u_old, L_uold=L_uold,
+                                       cfg=cfg), u_old)
+            return res.x, res
 
     return step
 
@@ -149,24 +151,25 @@ def semi_implicit_step(u, u_old, cfg: SHConfig, *, tol=1e-10, restart=40,
     ``(I + D - kL/2) u_new = (I + kL/2) u`` by GMRES, right-preconditioned
     by Jacobi (the diagonal of I + D plus the constant stencil diagonal).
     """
-    dev = resolve_device(device)
-    u = torch.as_tensor(u, device=dev)
-    u_old = torch.as_tensor(u_old, device=dev)
-    k = cfg.k
-    D = (5.0 * u - u_old) ** 2 * (k / 16.0) - cfg.g * k * u
-    b = u + (k / 2.0) * apply_L(u, cfg)
+    with span("step"):
+        dev = resolve_device(device)
+        u = torch.as_tensor(u, device=dev)
+        u_old = torch.as_tensor(u_old, device=dev)
+        k = cfg.k
+        D = (5.0 * u - u_old) ** 2 * (k / 16.0) - cfg.g * k * u
+        b = u + (k / 2.0) * apply_L(u, cfg)
 
-    def matvec(v):
-        return v + D * v - (k / 2.0) * apply_L(v, cfg)
+        def matvec(v):
+            return v + D * v - (k / 2.0) * apply_L(v, cfg)
 
-    # diagonal of L: -(diag(Lap^2)) - 2 diag(Lap) + (r-1); diag(Lap) = -4/h^2,
-    # diag(Lap^2) = 20/h^4 for the periodic 5-point stencil
-    h2 = cfg.h * cfg.h
-    diag_L = -(20.0 / (h2 * h2)) + 8.0 / h2 + (cfg.r - 1.0)
-    diag = 1.0 + D - (k / 2.0) * diag_L
-    res = gmres(matvec, b, x0=u, tol=tol, restart=restart, maxiter=maxiter,
-                M=lambda v: v / diag)
-    return res.x, res
+        # diagonal of L: -(diag(Lap^2)) - 2 diag(Lap) + (r-1); diag(Lap) = -4/h^2,
+        # diag(Lap^2) = 20/h^4 for the periodic 5-point stencil
+        h2 = cfg.h * cfg.h
+        diag_L = -(20.0 / (h2 * h2)) + 8.0 / h2 + (cfg.r - 1.0)
+        diag = 1.0 + D - (k / 2.0) * diag_L
+        res = gmres(matvec, b, x0=u, tol=tol, restart=restart, maxiter=maxiter,
+                    M=lambda v: v / diag)
+        return res.x, res
 
 
 def evolve_semi_implicit(u0, nsteps: int, cfg: SHConfig, device="cuda", **kw):

@@ -17,6 +17,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..dist.comm import reduce_sum
+from ..utils.trace import to_host
 from .gmres import _norm, _np_dtype
 
 
@@ -42,7 +43,7 @@ def cg(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
         maxiter = 10 * b.numel()
     precond = M if M is not None else (lambda v: v)
     ndt = _np_dtype(b.dtype)
-    tol_abs = ndt.type(max(tol * _norm(b, group).item(), atol))
+    tol_abs = ndt.type(max(tol * to_host(_norm(b, group)), atol))
 
     x = x0
     r = b - matvec(x)
@@ -50,7 +51,7 @@ def cg(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     p = z
     rz = _dot(r, z, group)
     k = 0
-    while ndt.type(_norm(r, group).item()) > tol_abs and k < maxiter:
+    while ndt.type(to_host(_norm(r, group))) > tol_abs and k < maxiter:
         ap = matvec(p)
         alpha = rz / _dot(p, ap, group)
         x = x + alpha * p
@@ -60,6 +61,6 @@ def cg(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
-    res = ndt.type(_norm(b - matvec(x), group).item())
+    res = ndt.type(to_host(_norm(b - matvec(x), group)))
     return CGResult(x=x, iters=k, resnorm=float(res),
                     converged=bool(res <= tol_abs))

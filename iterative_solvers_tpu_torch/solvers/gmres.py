@@ -23,6 +23,7 @@ import scipy.linalg
 import torch
 
 from ..dist.comm import reduce_sum
+from ..utils.trace import span, to_host
 
 
 def _norm(a, group=None):
@@ -82,7 +83,7 @@ def _arnoldi_column(V, w, j: int, ndt, group=None):
     (host, length ``V.shape[0]``) and its subdiagonal — the step's one
     host sync."""
     h_dev, w = _cgs2(V[:j + 1], w, group)
-    hb = torch.cat([h_dev, _norm(w, group)[None]]).cpu().numpy()
+    hb = to_host(torch.cat([h_dev, _norm(w, group)[None]]), "numpy")
     h = np.zeros(V.shape[0], dtype=ndt)
     h[:j + 1] = hb[:j + 1]
     beta = hb[j + 1]
@@ -101,31 +102,32 @@ def _gmres_cycle(matvec: Callable, precond: Callable, x0, r0, r0norm, tol_abs,
                  restart: int, group=None):
     """One restart cycle from residual ``r0`` (norm ``r0norm``, host).
     Returns ``(x_new, res_est, j)`` with host numbers."""
-    ndt = _np_dtype(r0.dtype)
-    m = restart
-    V = torch.zeros((m + 1,) + tuple(r0.shape), dtype=r0.dtype, device=r0.device)
-    V[0] = r0 / float(r0norm if r0norm > 0 else 1.0)
-    R = np.eye(m, dtype=ndt)
-    g = np.zeros(m + 1, dtype=ndt)
-    g[0] = r0norm
-    cs = np.zeros(m, dtype=ndt)
-    sn = np.zeros(m, dtype=ndt)
+    with span("krylov.cycle"):
+        ndt = _np_dtype(r0.dtype)
+        m = restart
+        V = torch.zeros((m + 1,) + tuple(r0.shape), dtype=r0.dtype, device=r0.device)
+        V[0] = r0 / float(r0norm if r0norm > 0 else 1.0)
+        R = np.eye(m, dtype=ndt)
+        g = np.zeros(m + 1, dtype=ndt)
+        g[0] = r0norm
+        cs = np.zeros(m, dtype=ndt)
+        sn = np.zeros(m, dtype=ndt)
 
-    j, res = 0, ndt.type(r0norm)
-    while j < m and res > tol_abs:
-        h, beta = _arnoldi_column(V, matvec(precond(V[j])), j, ndt, group)
-        res = _givens_step(h, beta, cs, sn, g, j)
-        R[:, j] = h[:m]
-        j += 1
+        j, res = 0, ndt.type(r0norm)
+        while j < m and res > tol_abs:
+            h, beta = _arnoldi_column(V, matvec(precond(V[j])), j, ndt, group)
+            res = _givens_step(h, beta, cs, sn, g, j)
+            R[:, j] = h[:m]
+            j += 1
 
-    if j == 0:
-        return x0, res, 0
-    # entries of g at/beyond the active column count hold the residual
-    # value, not least-squares data: the triangle is the leading j x j
-    y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
-    y = torch.as_tensor(y.astype(ndt), device=r0.device)
-    dx = torch.tensordot(y, V[:j], dims=1)
-    return x0 + precond(dx), res, j
+        if j == 0:
+            return x0, res, 0
+        # entries of g at/beyond the active column count hold the residual
+        # value, not least-squares data: the triangle is the leading j x j
+        y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
+        y = torch.as_tensor(y.astype(ndt), device=r0.device)
+        dx = torch.tensordot(y, V[:j], dims=1)
+        return x0 + precond(dx), res, j
 
 
 def gmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
@@ -147,17 +149,17 @@ def gmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     if maxiter is None:
         maxiter = 10 * restart
     ndt = _np_dtype(b.dtype)
-    tol_abs = ndt.type(max(tol * _norm(b, group).item(), atol))
+    tol_abs = ndt.type(max(tol * to_host(_norm(b, group)), atol))
 
     x, iters = x0, 0
     r = b - matvec(x)
-    res = ndt.type(_norm(r, group).item())
+    res = ndt.type(to_host(_norm(r, group)))
     while res > tol_abs and iters < maxiter:
         x, _, j = _gmres_cycle(matvec, precond, x, r, res, tol_abs, restart, group)
         iters += j
         # the Givens estimate can drift below the true residual (CGS2
         # roundoff): the outer loop and the report use the true residual
         r = b - matvec(x)
-        res = ndt.type(_norm(r, group).item())
+        res = ndt.type(to_host(_norm(r, group)))
     return GmresResult(x=x, iters=iters, resnorm=float(res),
                        converged=bool(res <= tol_abs))

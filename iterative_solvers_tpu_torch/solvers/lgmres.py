@@ -24,6 +24,7 @@ import scipy.linalg
 import torch
 
 from .. import resolve_device
+from ..utils.trace import span, to_host
 from .gmres import _arnoldi_column, _givens_step, _norm, _np_dtype
 
 
@@ -62,7 +63,7 @@ def _push_recycle(rec: LgmresRecycle, dx, adx=None, group=None) -> LgmresRecycle
     """Append dx/||dx|| (and A dx/||dx|| when the buffer caches A z) to the
     buffer, evicting the oldest entry when full; a zero ``dx`` leaves the
     buffer as it is."""
-    nx = _np_dtype(dx.dtype).type(_norm(dx, group).item())
+    nx = _np_dtype(dx.dtype).type(to_host(_norm(dx, group)))
     if not nx > 0:
         return rec
     scale = float(nx.dtype.type(1.0) / nx)
@@ -87,51 +88,52 @@ def _lgmres_cycle(matvec: Callable, precond: Callable, x, r, rnorm, tol_abs,
     """One augmented (inner_m + count) cycle from residual ``r`` with norm
     ``rnorm`` (host scalar).  Returns ``(x + dx, res_est, j, rec)`` with the
     Givens residual estimate and the step count as host numbers."""
-    ndt = _np_dtype(r.dtype)
-    rnorm = ndt.type(rnorm)
-    tol_abs = ndt.type(tol_abs)
-    shape = r.shape
-    outer_k = rec.z.shape[0]
-    mtot = inner_m + outer_k
-    steps = inner_m + rec.count
+    with span("krylov.cycle"):
+        ndt = _np_dtype(r.dtype)
+        rnorm = ndt.type(rnorm)
+        tol_abs = ndt.type(tol_abs)
+        shape = r.shape
+        outer_k = rec.z.shape[0]
+        mtot = inner_m + outer_k
+        steps = inner_m + rec.count
 
-    V = torch.zeros((mtot + 1,) + shape, dtype=r.dtype, device=r.device)
-    # flexible-right preconditioning: the Arnoldi basis starts from the raw
-    # residual (scipy _fgmres: v0 = r/||r||); M^{-1} enters only through
-    # the directions z_j = precond(V[j]).  Starting from precond(r) breaks
-    # the least-squares identity V[0] g[0] ~ r whenever M != I.
-    V[0] = r / float(rnorm if rnorm > 0 else 1.0)
-    Z = torch.zeros((mtot,) + shape, dtype=r.dtype, device=r.device)
-    R = np.eye(mtot, dtype=ndt)
-    g = np.zeros(mtot + 1, dtype=ndt)
-    g[0] = rnorm
-    cs = np.zeros(mtot, dtype=ndt)
-    sn = np.zeros(mtot, dtype=ndt)
+        V = torch.zeros((mtot + 1,) + shape, dtype=r.dtype, device=r.device)
+        # flexible-right preconditioning: the Arnoldi basis starts from the raw
+        # residual (scipy _fgmres: v0 = r/||r||); M^{-1} enters only through
+        # the directions z_j = precond(V[j]).  Starting from precond(r) breaks
+        # the least-squares identity V[0] g[0] ~ r whenever M != I.
+        V[0] = r / float(rnorm if rnorm > 0 else 1.0)
+        Z = torch.zeros((mtot,) + shape, dtype=r.dtype, device=r.device)
+        R = np.eye(mtot, dtype=ndt)
+        g = np.zeros(mtot + 1, dtype=ndt)
+        g[0] = rnorm
+        cs = np.zeros(mtot, dtype=ndt)
+        sn = np.zeros(mtot, dtype=ndt)
 
-    j, res = 0, rnorm
-    while j < steps and res > tol_abs:
-        if j >= inner_m:
-            z = rec.z[j - inner_m]
-            w = matvec(z) if rec.az is None else rec.az[j - inner_m]
+        j, res = 0, rnorm
+        while j < steps and res > tol_abs:
+            if j >= inner_m:
+                z = rec.z[j - inner_m]
+                w = matvec(z) if rec.az is None else rec.az[j - inner_m]
+            else:
+                z = precond(V[j])
+                w = matvec(z)
+            Z[j] = z
+            h, beta = _arnoldi_column(V, w, j, ndt, group)
+            res = _givens_step(h, beta, cs, sn, g, j)
+            R[:, j] = h[:mtot]
+            j += 1
+
+        if j == 0:
+            dx = torch.zeros_like(r)
         else:
-            z = precond(V[j])
-            w = matvec(z)
-        Z[j] = z
-        h, beta = _arnoldi_column(V, w, j, ndt, group)
-        res = _givens_step(h, beta, cs, sn, g, j)
-        R[:, j] = h[:mtot]
-        j += 1
-
-    if j == 0:
-        dx = torch.zeros_like(r)
-    else:
-        # entries of g at/beyond the active column count hold the residual
-        # value, not least-squares data: the triangle is the leading j x j
-        y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
-        y = torch.as_tensor(y.astype(ndt), device=r.device)
-        dx = torch.tensordot(y, Z[:j], dims=1)
-    rec = _push_recycle(rec, dx, None if rec.az is None else matvec(dx), group)
-    return x + dx, res, j, rec
+            # entries of g at/beyond the active column count hold the residual
+            # value, not least-squares data: the triangle is the leading j x j
+            y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
+            y = torch.as_tensor(y.astype(ndt), device=r.device)
+            dx = torch.tensordot(y, Z[:j], dims=1)
+        rec = _push_recycle(rec, dx, None if rec.az is None else matvec(dx), group)
+        return x + dx, res, j, rec
 
 
 def lgmres(matvec: Callable, b, x0=None, *, tol: float = 1e-5,
@@ -162,11 +164,11 @@ def _lgmres_run(matvec: Callable, b, x0, *, tol, atol, inner_m, outer_k, maxiter
     if recycle is None:
         recycle = init_recycle(b.shape, outer_k, b.dtype, b.device, store_av)
     ndt = _np_dtype(b.dtype)
-    tol_abs = ndt.type(max(tol * _norm(b, group).item(), atol))
+    tol_abs = ndt.type(max(tol * to_host(_norm(b, group)), atol))
 
     x, rec, iters, cycles = x0, recycle, 0, 0
     r = b - matvec(x)
-    res = ndt.type(_norm(r, group).item())
+    res = ndt.type(to_host(_norm(r, group)))
     while res > tol_abs and cycles < maxiter:
         x, _, j, rec = _lgmres_cycle(matvec, precond, x, r, res, tol_abs,
                                      inner_m, rec, group)
@@ -174,6 +176,6 @@ def _lgmres_run(matvec: Callable, b, x0, *, tol, atol, inner_m, outer_k, maxiter
         cycles += 1
         # gate the outer loop on the true residual (the Givens estimate drifts)
         r = b - matvec(x)
-        res = ndt.type(_norm(r, group).item())
+        res = ndt.type(to_host(_norm(r, group)))
     return (LgmresResult(x=x, iters=iters, resnorm=float(res),
                          converged=bool(res <= tol_abs)), rec, cycles)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..dist.comm import all_reduce
+from ..utils.trace import span, to_host
 from .gmres import _norm, _np_dtype
 from .lgmres import _lgmres_cycle, init_recycle
 
@@ -46,7 +47,7 @@ def _maxnorm(v, group=None):
 def _maxnorms(vs, group=None) -> list:
     """Max-norms of the fields ``vs`` as host floats, in one all-reduce."""
     m = torch.stack([torch.max(torch.abs(v)) for v in vs])
-    return (m if group is None else all_reduce(m, group, "max")).tolist()
+    return to_host(m if group is None else all_reduce(m, group, "max"), "list")
 
 
 class NewtonResult(NamedTuple):
@@ -88,6 +89,10 @@ class NewtonKrylov:
 
     def solve(self, residual: Callable, x0: torch.Tensor, *args) -> NewtonResult:
         """Solve ``residual(x, *args) = 0`` starting from ``x0``."""
+        with span("newton.solve"):
+            return self._solve(residual, x0, *args)
+
+    def _solve(self, residual: Callable, x0: torch.Tensor, *args) -> NewtonResult:
         if self.jvp_mode not in ("fd", "exact"):
             raise ValueError(f"jvp_mode must be 'fd' or 'exact', got {self.jvp_mode!r}")
         dtype = x0.dtype
@@ -104,6 +109,12 @@ class NewtonKrylov:
 
         def func(x):
             return residual(x, *args)
+
+        def evaluate(x):
+            """A residual evaluation of Newton's own (start, line search);
+            the FD matvecs call ``func`` unspanned."""
+            with span("newton.residual"):
+                return func(x)
 
         group = self.group
 
@@ -128,39 +139,40 @@ class NewtonKrylov:
             """Backtracking line search on phi(s) = ||F(x + s dx)||^2."""
             t = 1e-4
             s, k = 1.0, 0
-            fx = func(x + dx)
-            phi = _norm(fx, group).item() ** 2
+            fx = evaluate(x + dx)
+            phi = to_host(_norm(fx, group)) ** 2
             while phi > (1 - t * s) ** 2 * f0_sqnorm and k < self.max_backtracks:
                 s *= 0.5
-                fx = func(x + s * dx)
-                phi = _norm(fx, group).item() ** 2
+                fx = evaluate(x + s * dx)
+                phi = to_host(_norm(fx, group)) ** 2
                 k += 1
             return s, fx, k + 1
 
         gamma, eta_max, eta_threshold = 0.9, 0.9999, 0.1
         x = x0
-        fx = func(x0)
-        f_norm = _maxnorm(fx, group).item()
+        fx = evaluate(x0)
+        f_norm = to_host(_maxnorm(fx, group))
         f0_norm = f_norm
         done = f_norm <= f_tol
         eta = 1e-3
         rec = init_recycle(x0.shape, self.outer_k, kdt, x0.device)
         it, nfev = 0, 1
         while not done and it < self.maxiter:
-            if self.matvec_factory is not None:
-                mv = self.matvec_factory(x, fx)
-                rhs = -fx.to(kdt)
-            elif inner_dt is not None:
-                mv_full = matvec_at(x, fx)
-                mv = lambda v, f=mv_full: f(v.to(dtype)).to(inner_dt)  # noqa: E731
-                rhs = -fx.to(kdt)
-            else:
-                mv = matvec_at(x, fx)
-                rhs = -fx
-            ps = (self.psolve_factory(x, fx) if self.psolve_factory
-                  is not None else (lambda v: v))
+            with span("newton.jacobian"):
+                if self.matvec_factory is not None:
+                    mv = self.matvec_factory(x, fx)
+                    rhs = -fx.to(kdt)
+                elif inner_dt is not None:
+                    mv_full = matvec_at(x, fx)
+                    mv = lambda v, f=mv_full: f(v.to(dtype)).to(inner_dt)  # noqa: E731
+                    rhs = -fx.to(kdt)
+                else:
+                    mv = matvec_at(x, fx)
+                    rhs = -fx
+                ps = (self.psolve_factory(x, fx) if self.psolve_factory
+                      is not None else (lambda v: v))
             ndt = _np_dtype(kdt)
-            rnorm = ndt.type(_norm(rhs, group).item())
+            rnorm = ndt.type(to_host(_norm(rhs, group)))
             tol_inner = ndt.type(min(eta, eta * float(rnorm)) * float(rnorm))
             dx, _, inner_j, rec = _lgmres_cycle(
                 mv, ps, torch.zeros_like(rhs), rhs, rnorm, tol_inner,
@@ -168,7 +180,7 @@ class NewtonKrylov:
             for _ in range(self.inner_maxiter - 1):
                 # restart on the true linear residual, recycle buffer kept
                 r = rhs - mv(dx)
-                rn = ndt.type(_norm(r, group).item())
+                rn = ndt.type(to_host(_norm(r, group)))
                 if not rn > tol_inner:
                     break
                 dx, _, jstep, rec = _lgmres_cycle(
@@ -177,9 +189,9 @@ class NewtonKrylov:
             dx = dx.to(dtype)
 
             if self.line_search:
-                s, fx_new, ls_evals = armijo(x, dx, _norm(fx, group).item() ** 2)
+                s, fx_new, ls_evals = armijo(x, dx, to_host(_norm(fx, group)) ** 2)
             else:
-                s, fx_new, ls_evals = 1.0, func(x + dx), 1
+                s, fx_new, ls_evals = 1.0, evaluate(x + dx), 1
             x_new = x + s * dx
             f_norm_new, dx_norm, x_norm = _maxnorms([fx_new, s * dx, x_new], group)
 

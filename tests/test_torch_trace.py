@@ -1,0 +1,241 @@
+"""The port's tracing (``utils/trace``): spans, step ids and counters, the
+switch, the profiler's view, the host-sync counter's identities on CPU
+solves, and results bit for bit equal with tracing on and off."""
+from collections import Counter
+from functools import partial
+
+import numpy as np
+import pytest
+import torch
+
+from iterative_solvers_tpu_torch.io import convert, fixtures as tfx
+from iterative_solvers_tpu_torch.meshmove import pma as tpma
+from iterative_solvers_tpu_torch.models import droplet as tdp
+from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
+from iterative_solvers_tpu_torch.solvers.cg import cg
+from iterative_solvers_tpu_torch.solvers.gmres import gmres
+from iterative_solvers_tpu_torch.solvers.lgmres import lgmres
+from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
+from iterative_solvers_tpu_torch.utils import trace
+from iterative_solvers_tpu_torch.utils.trace import Span
+
+SH = sh.SHConfig(n=32, d=20.0)
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    """Each test starts and ends with tracing off and nothing recorded."""
+    torch.set_num_threads(1)
+    trace.disable()
+    trace.take()
+    yield
+    trace.disable()
+    trace.take()
+
+
+def sh_field(seed=3):
+    return torch.randn((SH.n, SH.n), dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.fixture(scope="module")
+def droplet():
+    fix, g = tfx.load_golden_step()
+    cfg = tfx.config_for(fix)
+    u, q = convert.state_from_numpy(fix.u, fix.q, "cpu")
+    return cfg, u, q, float(g["dt"])
+
+
+def syncs(t):
+    return sum(c.get("host.syncs", 0) for c in t.counters.values())
+
+
+def test_spans_nest_with_parent_and_step_id():
+    with trace.tracing():
+        trace.count("outside")
+        with trace.span("step"):
+            with trace.span("newton.solve"):
+                trace.count("k", 2)
+                with trace.span("krylov.cycle"):
+                    trace.count("k")
+                with trace.span("step"):        # a step inside a step: its own id
+                    trace.count("k", 5)
+            with trace.span("pma.loop"):
+                pass
+        with trace.span("step"):
+            trace.count("k")
+    assert trace.span("a") is trace.span("b")          # off again after the block
+    t = trace.take()
+    names = [s.name for s in t.spans]
+    assert names == ["step", "newton.solve", "krylov.cycle", "step", "pma.loop", "step"]
+    assert [s.parent for s in t.spans] == [None, 0, 1, 1, 0, None]
+    a, b, c = t.spans[0].step, t.spans[3].step, t.spans[5].step
+    assert [s.step for s in t.spans] == [a, a, a, b, a, c] and b == a + 1 and c == a + 2
+    assert t.counters == {None: {"outside": 1}, a: {"k": 3}, b: {"k": 5}, c: {"k": 1}}
+    for s in t.spans:
+        assert s.t0_ns <= s.t1_ns
+        if s.parent is not None:
+            p = t.spans[s.parent]
+            assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns
+    assert trace.take() == trace.Trace([], {})
+
+
+def test_self_time_on_a_synthetic_nest():
+    spans = [Span("step", 0, None, 0, 100),
+             Span("newton.solve", 0, 0, 10, 90),
+             Span("newton.residual", 0, 1, 10, 15),
+             Span("krylov.cycle", 0, 1, 20, 50),
+             Span("newton.jacobian", 0, 1, 50, 52),
+             Span("krylov.cycle", 0, 1, 55, 80),
+             Span("newton.solve", 1, None, 200, 240),
+             Span("krylov.cycle", 1, 6, 210, 230),
+             Span("krylov.cycle", 1, None, 300, 310)]   # not under a solve
+    assert trace.self_ns(spans, "newton.solve", ("krylov.cycle",)) == (80 - 30 - 25) + (40 - 20)
+    assert trace.self_ns(spans, "newton.solve", ()) == 120
+    assert trace.self_ns(spans, "step", ("newton.solve",)) == 20
+    assert trace.self_ns(spans, "newton.solve",
+                         ("krylov.cycle", "newton.residual", "newton.jacobian")) == 18 + 20
+
+
+def test_take_inside_an_open_span_raises():
+    with trace.tracing(), trace.span("step"):
+        with pytest.raises(RuntimeError, match="open span 'step'"):
+            trace.take()
+
+
+def _raise(*a, **k):
+    raise AssertionError("record_function entered")
+
+
+def test_off_records_nothing_and_enters_no_annotation(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(trace, "trace_annotation", _raise)
+    step = sh.make_cn_step(SH, sh.fast_solver(SH), device="cpu")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(sh_field())
+    assert trace.span("step") is trace.span("newton.solve")   # the one shared no-op
+    assert trace.take() == trace.Trace([], {})
+
+
+def test_on_without_a_profiler_enters_no_annotation(monkeypatch):
+    monkeypatch.setattr(trace, "trace_annotation", _raise)
+    with trace.tracing():
+        sh.make_cn_step(SH, sh.fast_solver(SH), device="cpu")(sh_field())
+    assert Counter(s.name for s in trace.take().spans)["step"] == 1
+
+
+def test_every_span_lies_in_the_profile(droplet):
+    cfg, u, q, dt = droplet
+    step = sh.make_cn_step(SH, sh.fast_solver(SH), device="cpu")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
+            trace.tracing():
+        step(sh_field())
+        sh.semi_implicit_step(sh_field(), sh_field(), SH, device="cpu")
+        tpma.loop_pma(q, u, 1e-7, 3, cfg.grid, cfg.pma, tdp.monitor_source)
+    spans = Counter(s.name for s in trace.take().spans)
+    annotated = Counter(e.name for e in prof.events() if e.is_user_annotation)
+    assert set(spans) == {"step", "newton.solve", "newton.residual", "newton.jacobian",
+                          "krylov.cycle", "pma.loop", "pma.substep"}
+    assert all(annotated[name] == n for name, n in spans.items())
+    assert spans["pma.substep"] == 3 and spans["step"] == 2
+
+
+def _sh_newton(kind):
+    """An SH CN solve set up three ways: the analytic f32 Jacobian, f64 FD
+    matvecs, FD matvecs with an f32 inner cycle."""
+    if kind == "analytic":
+        solver = sh.fast_solver(SH)
+    else:
+        solver = NewtonKrylov(f_tol=6e-6, inner_m=10, outer_k=5,
+                              inner_dtype="float32" if kind == "fd_f32" else None)
+    u_old = sh_field()
+    res = partial(sh.cn_residual, u_old=u_old, L_uold=sh.apply_L(u_old, SH), cfg=SH)
+    return solver, res, u_old
+
+
+@pytest.mark.parametrize("kind", ["analytic", "fd_f64", "fd_f32"])
+def test_newton_sync_identity(kind):
+    """With the line search on and one LGMRES cycle a Newton iteration the
+    solve reads the device 1 + 5 a iteration + one an Arnoldi step + one a
+    backtrack: ``func_evals + 4 iters``."""
+    solver, res, u_old = _sh_newton(kind)
+    assert solver.line_search and solver.inner_maxiter == 1
+    with trace.tracing():
+        out = solver.solve(res, u_old)
+    t = trace.take()
+    assert out.converged and out.iters >= 2
+    assert syncs(t) == out.func_evals + 4 * out.iters
+    names = Counter(s.name for s in t.spans)
+    assert names["krylov.cycle"] == names["newton.jacobian"] == out.iters
+    assert names["newton.solve"] == 1
+    wait = sum(c.get("host.wait_ns", 0) for c in t.counters.values())
+    assert 0 < wait <= t.spans[0].t1_ns - t.spans[0].t0_ns
+
+
+def _system(n=60, seed=2):
+    rng = np.random.default_rng(seed)
+    a = torch.tensor(2.0 * np.eye(n) + rng.standard_normal((n, n)) / np.sqrt(n))
+    return a, torch.tensor(rng.standard_normal(n))
+
+
+@pytest.mark.parametrize("solver", ["gmres", "lgmres", "cg"])
+def test_krylov_sync_identity(solver):
+    """``gmres``: 2 + iterations + cycles reads; ``lgmres``: one more a
+    cycle (the recycle push); ``cg``: one a test of the residual,
+    iterations + 1 of them, and one each for the tolerance and the final
+    residual."""
+    a, b = _system()
+    if solver == "cg":
+        a = a @ a.T
+    with trace.tracing():
+        if solver == "gmres":
+            out = gmres(lambda v: a @ v, b, tol=1e-10, restart=8)
+        elif solver == "lgmres":
+            out, _ = lgmres(lambda v: a @ v, b, tol=1e-10, inner_m=8, outer_k=3)
+        else:
+            out = cg(lambda v: a @ v, b, tol=1e-10)
+    t = trace.take()
+    cycles = sum(1 for s in t.spans if s.name == "krylov.cycle")
+    assert out.converged and (solver == "cg" or cycles >= 2)
+    want = {"gmres": 2 + out.iters + cycles, "lgmres": 2 + out.iters + 2 * cycles,
+            "cg": out.iters + 3}[solver]
+    assert syncs(t) == want
+
+
+def test_pma_loop_reads_nothing_and_the_steady_iteration_once_a_substep(droplet):
+    cfg, u, q, _ = droplet
+    with trace.tracing():
+        tpma.loop_pma(q, u, 1e-7, 4, cfg.grid, cfg.pma, tdp.monitor_source)
+    t = trace.take()
+    assert syncs(t) == 0
+    assert [s.name for s in t.spans] == ["pma.loop"] + ["pma.substep"] * 4
+    assert all(s.parent == 0 for s in t.spans[1:])
+    with trace.tracing():
+        _, iters, _ = tpma.mesh_steady_state(q, u, 1e-7, cfg.grid, cfg.pma,
+                                             tdp.monitor_source, atol=0.0, max_iters=3)
+    assert iters == 3 and syncs(trace.take()) == 3
+
+
+def _run(case, droplet):
+    if case == "sh_cn":
+        return sh.make_cn_step(SH, sh.fast_solver(SH), device="cpu")(sh_field())
+    if case == "sh_semi":
+        return sh.semi_implicit_step(sh_field(), sh_field(4), SH, device="cpu")
+    cfg, u, q, dt = droplet
+    out = tdp.make_step(cfg, dt=dt, dtmesh=3e-9, pma_loops=5, jvp_dtype="float32",
+                        jvp_kernel=True, device="cpu")(u, q, dt)
+    return (out.u, out.q), out
+
+
+@pytest.mark.parametrize("case", ["sh_cn", "sh_semi", "droplet"])
+def test_results_bit_for_bit_with_tracing_on_and_off(case, droplet):
+    off = _run(case, droplet)
+    with trace.tracing():
+        on = _run(case, droplet)
+    t = trace.take()
+    assert syncs(t) > 0 and sum(1 for s in t.spans if s.name == "step") == 1
+    for a, b in zip(torch.utils._pytree.tree_leaves(off), torch.utils._pytree.tree_leaves(on)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
