@@ -258,6 +258,25 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   (the best 8192^2 copy rate), which every row of the
                   kernel line is also taken as a share of.
 
+39. pma_kernel  — run before phase 3, whose sweeps already take them: the
+                  five kernels of the fused PMA sub-step
+                  (``ops/csrc/pma_substep.cu`` through ``ops/pma_substep``)
+                  at 1024^2 and 2048^2 f32 (the droplet phases' grids) on a
+                  seeded rough state (``pma_state``), each against its eager stage on
+                  the same inputs: ``pma_source`` (src, J, a11, a22, a12),
+                  the four ``pma_smooth`` passes (the last with its partial
+                  sums), ``pma_rhs`` given the kernel's floor, ``pma_divide``
+                  and ``pma_accumulate`` bit for bit; the Mackenzie floor
+                  within 4 ulps of the eager one and equal in two runs; each
+                  with its ms, graph ms, the eager stage's ms and graph ms
+                  and its bytes bound.  The wrappers' launch counts are
+                  zeroed after it and read around the droplet main paths:
+                  phases 3-6, 17 and 29 run the fused sub-loop (every
+                  sub-step whole, ``smooth`` at least once a sub-step);
+                  phase 30 caps the monitor, a form the kernels do
+                  not compute, so it launches none; phases 31-36 (the
+                  1024^2 flagship's) are read, not checked.
+
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2.
@@ -425,7 +444,8 @@ def kernel_resources() -> dict:
     kernel bench's launch (13 terms, 8 right-hand sides, 2 halo rows); the
     clamped tiled SpMM (the general path) on its f32 vector path and f64
     scalar path; the clamped tiled SpMV on its vector path (f32, f64) and
-    its scalar path (f64: the Poisson 999^2 main path)."""
+    its scalar path (f64: the Poisson 999^2 main path); the fused PMA
+    sub-step's source kernel."""
     import ctypes
     from iterative_solvers_tpu_torch.ops import _build
 
@@ -455,6 +475,9 @@ def kernel_resources() -> dict:
         err = call()
         check(err == 0, f"resources of {name}: CUDA error {err}")
         out[name] = dict(zip(keys, buf))
+    from iterative_solvers_tpu_torch.ops import pma_substep
+
+    out["pma_source"] = pma_substep.source_resources()
     return out
 
 
@@ -545,6 +568,164 @@ def synthetic_jvp_inputs(ny: int, nx: int, dev, seed: int = 7):
     stack[:3] += 1.0
     v = rng.standard_normal((ny, nx), dtype=np.float32)
     return torch.tensor(v, device=dev), torch.tensor(stack, device=dev)
+
+
+# -- the fused PMA sub-step ------------------------------------------------------
+
+PMA_SHAPES = ((N, N), (2048, 2048))   # the droplet phases' grids
+PMA_EXACT_FROM = 768   # rows from which the eager edge rows sum as the kernels do
+PMA_FLOOR_ULPS = 4
+
+
+def pma_state(ny: int, nx: int, dev):
+    """A droplet-like film on the coalescence domain, a smooth deviation
+    potential with a little noise and an increment of noise, f32:
+    ``(grid, base, s, u)``.  The noise's size is fixed, so its second
+    differences grow with the grid: J strays far from 1 in the one-sided
+    edge rows (-10 to 17 at 1024^2), and at 2048^2 inside too."""
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.core.grid import Grid2D
+
+    grid = Grid2D(nx=nx, ny=ny, xl=-3.0, xr=6.0, yb=-3.0, yt=3.0)
+    xx, yy = np.meshgrid(np.linspace(-3.0, 6.0, nx), np.linspace(-3.0, 3.0, ny))
+    rng = np.random.default_rng(3)
+    phi = 0.02 * np.sin(xx) * np.cos(yy) + 1e-3 * grid.dx * grid.dy * rng.standard_normal(
+        (ny, nx))
+    u = 0.005 + np.exp(-4.0 * (xx ** 2 + yy ** 2)) + np.exp(-4.0 * ((xx - 3.0) ** 2 + yy ** 2))
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return grid, f(phi), f(1e-6 * rng.standard_normal((ny, nx))), f(u)
+
+
+def pma_kernel_rows(dev, shapes) -> list:
+    """Each kernel of the fused PMA sub-step against its eager stage on the
+    same inputs (the droplet's alpha, gamma and Mackenzie constant): max
+    |kernel - eager| over its outputs, which must be 0 where the kernels
+    claim the eager chain bit for bit (``pma_source`` from
+    ``PMA_EXACT_FROM`` rows; the others at every grid); the floor within
+    ``PMA_FLOOR_ULPS`` ulps of the eager one and equal in two runs.  Times:
+    ``ms`` (CUDA events through the wrapper), ``device_ms`` (graph replay),
+    ``plain_ms`` / ``plain_device_ms`` (the eager stage, the same two ways)
+    and the bytes bound."""
+    import numpy as np
+    import torch
+    from iterative_solvers_tpu_torch.meshmove import pma
+    from iterative_solvers_tpu_torch.meshmove.monitor import smooth_pass
+    from iterative_solvers_tpu_torch.models import droplet as dp
+    from iterative_solvers_tpu_torch.ops import curvilinear as cv, pma_substep as ps
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
+    alpha, gamma, c = 0.01, 0.1, 0.15
+    rows = []
+    for ny, nx in shapes:
+        grid, base, s, u = pma_state(ny, nx, dev)
+        uk, ue = ps.film_gradient(u, grid)
+        den = 1.0 - gamma * torch.as_tensor(pma.pma_leig(grid), dtype=torch.float32,
+                                            device=dev)
+
+        def eager_source():
+            geom = cv.mesh_geometry_dev(base + s, grid)
+            return dp.monitor_source(u, geom, grid), geom
+
+        src, geom = eager_source()
+        jac = geom.jac
+        metric = ((geom.xy * geom.xy + geom.yy * geom.yy) / jac,
+                  (geom.xy * geom.xy + geom.xx * geom.xx) / jac,
+                  -(geom.xy * (geom.xx + geom.yy)) / jac)
+        passes = [src]
+        for _ in range(4):
+            passes.append(smooth_pass(passes[-1]))
+        mon = passes[-1]
+        floor = c * (torch.sum(mon * torch.abs(jac)) * grid.dx * grid.dy)
+
+        stages = torch.empty((3, ny, nx), dtype=torch.float32, device=dev)
+        k_src, k_jac = ps.source(base, s, u, uk, ue, grid, stages=stages)
+        k_passes = [ps.smooth(passes[k]) for k in range(3)]
+        k_mon, partials = ps.smooth(passes[3], jac)
+        k_passes.append(k_mon)
+        floors = [torch.empty(1, dtype=torch.float32, device=dev) for _ in range(2)]
+        k_rhs = [ps.rhs(mon, jac, partials, grid, c, alpha, floor_out=f) for f in floors]
+        rhs_of_floor = torch.sqrt((mon + floors[0]) * torch.abs(jac)) / alpha
+        q_rhs = k_rhs[0]
+
+        def err(pairs):
+            return max(float((a - b).abs().max()) for a, b in pairs)
+
+        floor_err = abs(float(floors[0]) - float(floor))
+        ulp = float(np.spacing(np.float32(float(floor))))
+        exact = {"pma_source": err([(k_src, src), (k_jac, jac), *zip(stages, metric)]),
+                 "pma_smooth": err(zip(k_passes, passes[1:])),
+                 "pma_rhs": err([(k_rhs[0], rhs_of_floor), (k_rhs[1], k_rhs[0])]),
+                 "pma_divide": err([(ps.divide(q_rhs, den), q_rhs / den)]),
+                 "pma_accumulate": err([(ps.accumulate(s, q_rhs, 1e-10), s + 1e-10 * q_rhs)])}
+        label = f"{ny}x{nx}"
+        for name, e in exact.items():
+            if name != "pma_source" or ny >= PMA_EXACT_FROM:
+                check(e == 0.0, f"{name} at {label}: off its eager stage by {e}")
+        check(torch.equal(floors[0], floors[1]), f"pma_rhs at {label}: the floor does not repeat")
+        check(floor_err <= PMA_FLOOR_ULPS * ulp,
+              f"pma_rhs at {label}: floor {float(floors[0])} off the eager {float(floor)} "
+              f"by {floor_err / ulp} ulps")
+        check(partials.numel() == ps.partials_count(grid), f"pma_smooth at {label}: partials")
+
+        def eager_rhs():
+            fl = c * (torch.sum(mon * torch.abs(jac)) * grid.dx * grid.dy)
+            return torch.sqrt((mon + fl) * torch.abs(jac)) / alpha
+
+        def eager_partials():
+            m = smooth_pass(passes[3])
+            return m, torch.sum(m * torch.abs(jac))
+
+        # (name, kernel call, eager call, fields read and written once)
+        calls = [("pma_source", lambda: ps.source(base, s, u, uk, ue, grid), eager_source, 7),
+                 ("pma_smooth", lambda: ps.smooth(src), lambda: smooth_pass(src), 2),
+                 ("pma_smooth_partials", lambda: ps.smooth(passes[3], jac), eager_partials, 3),
+                 ("pma_rhs", lambda: ps.rhs(mon, jac, partials, grid, c, alpha), eager_rhs, 3),
+                 ("pma_divide", lambda: ps.divide(q_rhs, den), lambda: q_rhs / den, 3),
+                 ("pma_accumulate", lambda: ps.accumulate(s, q_rhs, 1e-10),
+                  lambda: s + 1e-10 * q_rhs, 3)]
+        for name, kernel, plain, fields in calls:
+            nbytes = fields * 4 * ny * nx
+            row = {"name": name, "shape": [ny, nx], "dtype": "float32",
+                   "max_abs_err": exact[name.removesuffix("_partials")],
+                   "exact_checked": name != "pma_source" or ny >= PMA_EXACT_FROM,
+                   "ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
+                   "plain_ms": cuda_ms(plain), "plain_device_ms": graph_ms(plain),
+                   "bound_ms": nbytes / hbm_bytes_per_s() * 1e3, "bound_by": "bytes",
+                   "library_ms": None}
+            if name == "pma_rhs":
+                row.update(floor=float(floors[0]), eager_floor=float(floor),
+                           floor_err_ulps=floor_err / ulp)
+            check_bound(f"{name} {label}", row["device_ms"], row["bound_ms"], nbytes)
+            rows.append(row)
+    return rows
+
+
+def pma_kernel_phase(dev) -> dict:
+    """Phase 39: the fused PMA sub-step's kernels at the droplet phases'
+    grids; returns the rows by ``(name, shape label)``."""
+    rows = {}
+    for row in pma_kernel_rows(dev, PMA_SHAPES):
+        emit({"phase": "pma_kernel", **row})
+        rows[row["name"], f"{row['shape'][0]}x{row['shape'][1]}"] = row
+    return rows
+
+
+def pma_launches(label: str, expect: bool = True) -> dict:
+    """The fused PMA sub-step's launches by wrapper since they were last
+    zeroed, and zeroes them.  ``expect``: ``label`` ran the fused sub-loop,
+    so there are launches, every sub-step whole (one source, right-hand
+    side, divide and accumulate, and at least one smoothing pass each)."""
+    from iterative_solvers_tpu_torch.ops import pma_substep as ps
+
+    got = {f.__name__: f.launches for f in ps.WRAPPERS}
+    ps.reset_launches()
+    if expect:
+        check(got["source"] > 0
+              and got["rhs"] == got["divide"] == got["accumulate"] == got["source"]
+              and got["smooth"] >= got["source"],
+              f"{label}: the fused PMA sub-step's launches {got}")
+    return got
 
 
 # -- the Swift-Hohenberg slice ---------------------------------------------------
@@ -1632,8 +1813,9 @@ def residual_pair(dp, cfg, u, q, geometry_fn, dt, dev) -> dict:
 
 def droplet_driver_phases(dev, prepared) -> tuple:
     """Phases 17-19: the droplet drivers and the port's headline bench.
-    Returns the droplet_jvp launches of the two ``evolve`` runs and the
-    inflated coalescence state ``(q, u)`` of phase 18."""
+    Returns the droplet_jvp launches of the two ``evolve`` runs, their
+    fused PMA sub-step launches by wrapper and the inflated coalescence
+    state ``(q, u)`` of phase 18."""
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch import bench
@@ -1650,6 +1832,7 @@ def droplet_driver_phases(dev, prepared) -> tuple:
                           inner_dtype="float32", max_backtracks=4)
     nsteps = 3
     launches = 0
+    pma_launches("before phase 17", expect=False)
     fix, golden = fx.load_golden_step()
     cfg_s = fx.config_for(fix)
     u_s = torch.tensor(fix.u, device=dev)
@@ -1694,6 +1877,8 @@ def droplet_driver_phases(dev, prepared) -> tuple:
               "f_norms": f_norms.tolist(), "dts": dts.tolist(), "t": t,
               "launches": n_launch, "min_jac": min_jac, "seconds": secs})
         del recs, log
+    pma_evolve = pma_launches("droplet_evolve")
+    emit({"phase": "droplet_evolve_pma", "pma_substep_launches": pma_evolve})
 
     # -- 18. the reference's inflation of the coalescence fixture ----------------
     cfg_c = fx.config_for(fx.parse_name(bench.FIXTURE))
@@ -1719,7 +1904,7 @@ def droplet_driver_phases(dev, prepared) -> tuple:
     check(line["worst_f_norm"] <= 1e-7 and np.isfinite(line["value"]) and line["value"] > 0,
           f"bench91: {line}")
     emit({"phase": "bench91", **line})
-    return launches, (q, u)
+    return launches, pma_evolve, (q, u)
 
 
 # -- the MEMS workload and the CLI ----------------------------------------------------
@@ -2122,9 +2307,10 @@ def dist_checkpoint(dev, mesh, prepared, tmp: pathlib.Path) -> None:
           f"dist_checkpoint: metadata {meta}")
 
 
-def large_scale_phase(dev) -> int:
+def large_scale_phase(dev) -> tuple:
     """Phase 29: ``examples/large_scale_droplet.main`` at n = 2048, 2 timed
-    steps in kernel mode.  Returns its droplet_jvp launches."""
+    steps in kernel mode.  Returns its droplet_jvp launches and its fused
+    PMA sub-step launches by wrapper."""
     import contextlib
     import io
 
@@ -2132,23 +2318,27 @@ def large_scale_phase(dev) -> int:
     from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
 
     jvp_matvec.launches = 0
+    pma_launches("before phase 29", expect=False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         line, secs = timed(lambda: ls.main(["2048", "2", "kernel", str(dev)]))
     launches = jvp_matvec.launches
+    pma_l = pma_launches("large_scale_droplet")
     emit({"phase": "large_scale_droplet", **line, "droplet_jvp_launches": launches,
-          "seconds": secs, "log": buf.getvalue().splitlines()[:-1]})
+          "pma_substep_launches": pma_l, "seconds": secs,
+          "log": buf.getvalue().splitlines()[:-1]})
     check(line["converged"] and line["f_norm"] <= 1e-5,
           f"large_scale_droplet: {line}")
     check(launches > 0, "large_scale_droplet launched no droplet_jvp kernel")
-    return launches
+    return launches, pma_l
 
 
-def longrun_phase(dev, prepared, tmp: pathlib.Path) -> int:
+def longrun_phase(dev, prepared, tmp: pathlib.Path) -> tuple:
     """Phase 30: ``examples/droplet_longrun.main`` at n = 1024 from
     checkpoints seeded with the prepared state: two chunks of 3 steps in one
     call, against one chunk and a fresh call that resumes from its
-    checkpoint.  Returns the droplet_jvp launches."""
+    checkpoint.  Returns the droplet_jvp launches and the fused PMA
+    sub-step launches by wrapper."""
     import contextlib
     import io
 
@@ -2166,6 +2356,7 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> int:
         lr.save_chunk(tmp / f"longrun_{tag}_ckpt", cfg, u, phi, 0, 0.0, DT_MAIN)
     common = [f"{k}={v}" for k, v in opts.items()] + [f"out_dir={tmp}", f"device={dev}"]
     jvp_matvec.launches = 0
+    pma_launches("before phase 30", expect=False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         full, secs_full = timed(lambda: lr.main([str(N), "6", "tag=full", *common]))
@@ -2174,6 +2365,11 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> int:
                                   config=cfg)
         rest, secs_rest = timed(lambda: lr.main([str(N), "6", "tag=parts", *common]))
     launches = jvp_matvec.launches
+    pma_l = pma_launches("droplet_longrun", expect=False)
+    # droplet_longrun bounds the monitor (monitor_cap): a form the kernels do not
+    # compute, so its sub-loop stays eager
+    check(cfg.pma.monitor_cap is not None and not any(pma_l.values()),
+          f"droplet_longrun: the capped monitor took the fused PMA kernels {pma_l}")
     resumed = rest["records"]
     du = float((rest["u"] - full["u"]).abs().max())
     dq = float((rest["q"] - full["q"]).abs().max())
@@ -2188,7 +2384,7 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> int:
           "dt0": DT_MAIN, "chunk": 3, "uninterrupted": brief(full["records"]),
           "resumed": brief(resumed), "seconds": [secs_full, secs_first, secs_rest],
           "max_abs_du": du, "max_abs_dq": dq, "q_moved": moved,
-          "droplet_jvp_launches": launches})
+          "droplet_jvp_launches": launches, "pma_substep_launches": pma_l})
     check(full["records"][:3] == first["records"],
           "droplet_longrun: the first chunk differs between the two runs")
     check(torch.equal(back["u"], first["u"]) and torch.equal(back["q"], first["q"]),
@@ -2201,12 +2397,13 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> int:
     # extrapolation history): two solutions within f_tol of the same step
     check(du <= 3 * 2 * f_tol and dq <= 1e-3 * moved,
           f"droplet_longrun: resumed run off by du {du}, dq {dq} (q moved {moved})")
-    return launches
+    return launches, pma_l
 
 
 def dist_phases(dev, prepared, tmp: pathlib.Path) -> dict:
     """Phases 26-30 under one NCCL process group of world size 1 (the
-    machine has one card: NCCL puts one rank on a GPU)."""
+    machine has one card: NCCL puts one rank on a GPU).  Returns the
+    kernels' launches by phase (the fused PMA sub-step's under ``pma``)."""
     import torch.distributed as dist
     from iterative_solvers_tpu_torch.dist import mesh as dmesh
 
@@ -2219,8 +2416,10 @@ def dist_phases(dev, prepared, tmp: pathlib.Path) -> dict:
         dist_checkpoint(dev, mesh, prepared, tmp)
     finally:
         dist.destroy_process_group()
-    return {"dist_sh2048": stencil, "large_scale_droplet": large_scale_phase(dev),
-            "droplet_longrun": longrun_phase(dev, prepared, tmp)}
+    (large, pma_large), (longrun, pma_longrun) = (large_scale_phase(dev),
+                                                  longrun_phase(dev, prepared, tmp))
+    return {"dist_sh2048": stencil, "large_scale_droplet": large, "droplet_longrun": longrun,
+            "pma": {"large_scale_droplet": pma_large, "droplet_longrun": pma_longrun}}
 
 
 # -- the last four drivers and the native API ---------------------------------------
@@ -2853,7 +3052,12 @@ def main() -> int:
           "device_vmem_bytes": roofline.device_vmem_bytes(),
           "seconds": time.perf_counter() - t0})
 
+    # -- 39. the fused PMA sub-step's kernels, before phase 3 takes them ------------
+    pma_rows = pma_kernel_phase(dev)
+    pma_launches("phase 39", expect=False)
+
     kstats, launches_main, prepared = droplet_phases(dev)
+    pma_by_phase = {"prepare_step1024": pma_launches("phases 3-6")}
 
     # -- 7-10. the Swift-Hohenberg slice -------------------------------------
     rows = stencil_kernel_rows(dev)
@@ -2866,7 +3070,8 @@ def main() -> int:
         sparse_phases(dev)
 
     # -- 17-19. the droplet drivers and the headline bench --------------------------
-    launches_evolve, inflated91 = droplet_driver_phases(dev, prepared)
+    launches_evolve, pma_by_phase["droplet_evolve"], inflated91 = \
+        droplet_driver_phases(dev, prepared)
 
     # -- 20-25. the MEMS workload and the CLI -----------------------------------------
     touchdown = mems_phases(dev)
@@ -2878,11 +3083,13 @@ def main() -> int:
         dist_launches = dist_phases(dev, prepared, pathlib.Path(tmp))
     new_jvp = {k: dist_launches[k] for k in ("large_scale_droplet", "droplet_longrun")}
     new_stencil = dist_launches["dist_sh2048"]
+    pma_by_phase.update(dist_launches["pma"])
 
     # -- 31-36. the last four drivers and the native API ------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         final = final_phases(dev, inflated91, touchdown, pathlib.Path(tmp))
     new_jvp["flagship_1024"] = final["flagship_1024"]
+    pma_by_phase["phases 31-36"] = pma_launches("phases 31-36", expect=False)
 
     # -- 37. the JAX package's public API on the port -------------------------------
     final["surface"] = surface_phase(dev)
@@ -2989,6 +3196,26 @@ def main() -> int:
         spmm_entry("grid_dia_matmat", 279),
         spmm_entry("grid_dia_matmat_interleaved", 279),
     ]
+    # the fused PMA sub-step's five kernels at 1024^2, 2048^2 beside; launches
+    # of the droplet phases by wrapper
+    pma_wrapper = {"pma_source": "source", "pma_smooth": "smooth", "pma_rhs": "rhs",
+                   "pma_divide": "divide", "pma_accumulate": "accumulate"}
+    pma_numbers = numbers + ("plain_device_ms", "exact_checked")
+    for kname, wrapper in pma_wrapper.items():
+        row = pma_rows[kname, f"{N}x{N}"]
+        by_phase = {k: v[wrapper] for k, v in pma_by_phase.items()}
+        more = {k: {n: pma_rows[k, "2048x2048"][n] for n in pma_numbers}
+                for k in ([kname, "pma_smooth_partials"] if kname == "pma_smooth" else [kname])}
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": "iterative_solvers_tpu_torch/ops/csrc/pma_substep.cu",
+                        "replaces": None, "launches": sum(by_phase.values()),
+                        "launches_by_phase": by_phase,
+                        **{k: row[k] for k in pma_numbers}, "shape": row["shape"],
+                        "dtype": row["dtype"],
+                        **({"partials": {n: pma_rows["pma_smooth_partials", f"{N}x{N}"][n]
+                                         for n in pma_numbers}}
+                           if kname == "pma_smooth" else {}),
+                        "at_2048": more})
     denom = hbm_bytes_per_s() / 1e9
     kernels = [*with_shares(kernels, denom, copy_ceiling),
                *stream_entries(ladder_rows, ladder_launches, copy_ceiling)]

@@ -9,7 +9,8 @@ layout and function names so each counterpart is easy to find:
                  BSR, GridDIA) with their assembly helpers, and the
                  hand-written CUDA kernels of ``ops/csrc`` with their
                  wrappers and build: the droplet JVP matvec, the periodic
-                 stencils, the diagonal-format SpMV / SpMM
+                 stencils, the diagonal-format SpMV / SpMM, the PMA
+                 sub-step's stencil and pointwise chain
 - ``meshmove`` — monitor smoothing and the parabolic Monge–Ampère mesh loop
 - ``solvers``  — GMRES, LGMRES with outer-vector recycling, CG,
                  Jacobian-free Newton–Krylov and the variable-order BDF

@@ -5,9 +5,12 @@
 
 applied spectrally: forward 2-D DCT, pointwise divide by ``1 - gamma Leig``,
 inverse DCT.  :func:`loop_pma` runs the explicit sub-steps as a host loop
-over device tensors (no host sync inside).  :func:`solve_shifted_neumann`
-is the iterative alternative to the spectral solve (Chebyshev or CG on the
-stencil operator), :func:`mesh_steady_state` iterates to a steady mesh.
+over device tensors (no host sync inside); on the card, in f32, on the
+deviation potential with a monitor source that declares its kernel form,
+each sub-step is the hand-written kernels of ``ops.pma_substep``.
+:func:`solve_shifted_neumann` is the iterative alternative to the spectral
+solve (Chebyshev or CG on the stencil operator), :func:`mesh_steady_state`
+iterates to a steady mesh.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.grid import Grid2D
-from ..ops import curvilinear
+from ..ops import curvilinear, pma_substep
 from ..ops.dct import dct2, idct2
 from ..utils.trace import span, to_host
 from .monitor import smooth_and_regularise
@@ -164,6 +167,49 @@ def pma_dqdt(q, u, grid: Grid2D, params: PMAParams,
     return solve_pma(mon, geom.jac, grid, params)
 
 
+def _fused_form(s, u, grid: Grid2D, params: PMAParams, monitor_source: Callable,
+                geometry_fn: Callable | None) -> bool:
+    """Whether the sub-loop on the state ``s`` (the potential, or the base
+    the increment is added to) and the film ``u`` is what the fused kernels of
+    ``ops.pma_substep`` compute: f32 fields that require no gradient (the
+    kernels have no derivative rule), an f32 spectral solve without a
+    monitor cap, at least one smoothing pass, ``ny, nx >= 8``, and the
+    geometry and monitor source whose ``pma_kernel`` forms they compute."""
+    return (s.dtype == torch.float32 and u.dtype == torch.float32
+            and not (s.requires_grad or u.requires_grad)
+            and params.spectral_dtype in (None, "float32")
+            and params.monitor_cap is None and params.smoothing_iters >= 1
+            and min(grid.shape) >= 8
+            and getattr(geometry_fn, "pma_kernel", None) == pma_substep.GEOMETRY
+            and getattr(monitor_source, "pma_kernel", None) == pma_substep.MONITOR)
+
+
+def _fused(s, u, grid: Grid2D, params: PMAParams, monitor_source: Callable,
+           geometry_fn: Callable | None) -> bool:
+    """:func:`_fused_form` on CUDA tensors: the sub-loop takes the kernels."""
+    return (s.is_cuda and u.is_cuda
+            and _fused_form(s, u, grid, params, monitor_source, geometry_fn))
+
+
+def _loop_fused(base, s, u, dt: float, loops: int, grid: Grid2D,
+                params: PMAParams):
+    """``loops`` sub-steps by the fused kernels on ``phi = base + s``
+    (``base`` None: ``phi = s``); returns the new ``s``.  The film's
+    gradient and the spectral denominator are made once."""
+    s, u = s.contiguous(), u.contiguous()
+    base = None if base is None else base.contiguous()
+    u_ksi, u_eta = pma_substep.film_gradient(u, grid)
+    den = 1.0 - params.gamma * _leig_tensor(grid, s.dtype, s.device)
+    for _ in range(loops):
+        with span("pma.substep"), span("pma.fused"):
+            s = pma_substep.substep(base, s, u, u_ksi, u_eta, den, grid, dt=dt,
+                                    smoothing_iters=params.smoothing_iters,
+                                    mackenzie_c=params.mackenzie_c,
+                                    alpha=params.alpha,
+                                    precision=params.spectral_precision)
+    return s
+
+
 def loop_pma(q, u, dt: float, loops: int, grid: Grid2D, params: PMAParams,
              monitor_source: Callable, geometry_fn: Callable | None = None):
     """``loops`` explicit PMA sub-steps.
@@ -172,9 +218,15 @@ def loop_pma(q, u, dt: float, loops: int, grid: Grid2D, params: PMAParams,
     carries the accumulated *increment* (``q0 + acc``), not the updated
     potential: one update ``dt * dqdt`` is ~1e-9 of ``q``, below the f32
     ULP, so casting ``q`` itself would quantise the updates away.
+
+    Where :func:`_fused` holds, each sub-step runs the fused kernels (a
+    ``pma.fused`` span inside its ``pma.substep`` span): the same numbers
+    as the eager chain but for the order of the Mackenzie sum.
     """
     with span("pma.loop"):
         if params.mesh_dtype is None:
+            if _fused(q, u, grid, params, monitor_source, geometry_fn):
+                return _loop_fused(None, q, u, dt, loops, grid, params)
             for _ in range(loops):
                 with span("pma.substep"):
                     q = q + dt * pma_dqdt(q, u, grid, params, monitor_source,
@@ -185,10 +237,13 @@ def loop_pma(q, u, dt: float, loops: int, grid: Grid2D, params: PMAParams,
         q0 = q.to(md)
         um = u.to(md)
         acc = torch.zeros_like(q0)
-        for _ in range(loops):
-            with span("pma.substep"):
-                acc = acc + dt * pma_dqdt(q0 + acc, um, grid, params,
-                                          monitor_source, geometry_fn)
+        if _fused(q0, um, grid, params, monitor_source, geometry_fn):
+            acc = _loop_fused(q0, acc, um, dt, loops, grid, params)
+        else:
+            for _ in range(loops):
+                with span("pma.substep"):
+                    acc = acc + dt * pma_dqdt(q0 + acc, um, grid, params,
+                                              monitor_source, geometry_fn)
         return q + acc.to(q.dtype)
 
 

@@ -263,11 +263,19 @@ def jvp_field_stack(x, geom: MeshGeometry, cfg: DropletConfig, dt):
     return torch.stack([inv_j, geom.xx, geom.yy, geom.xy, c0, c1, c2, c3])
 
 
-def monitor_source(u, geom: MeshGeometry, grid: Grid2D):
-    """mon = |u_xx + u_yy|^2 with the reference's quirk BCs."""
+def monitor_source(u, geom: MeshGeometry, grid: Grid2D, *,
+                   staged=curvilinear.unstaged):
+    """mon = |u_xx + u_yy|^2 with the reference's quirk BCs.  ``staged`` as
+    in ``ops.curvilinear.laplace``; it also stands where the fused PMA
+    kernel keeps ``u`` (the gradients it reads where they are used)."""
     u_ksi, u_eta = curvilinear.grad_ksi_neumann(u, grid, quirk=True)
-    uxx, uyy = curvilinear.laplace(u, u_ksi, u_eta, geom, grid)
+    uxx, uyy = curvilinear.laplace(staged("u", u), u_ksi, u_eta, geom, grid,
+                                   staged=staged)
     return torch.abs(uxx + uyy) ** 2
+
+
+# the fused stage that computes this source (``ops.pma_substep.MONITOR``)
+monitor_source.pma_kernel = "quirk_laplacian_sq"
 
 
 # -- droplet seeding ---------------------------------------------------------

@@ -74,7 +74,14 @@ def mesh_geometry(q, grid: Grid2D) -> MeshGeometry:
     return MeshGeometry(x=qx, y=qy, xx=qxx, yy=qyy, xy=qxy, jac=jac)
 
 
-def mesh_geometry_dev(phi, grid: Grid2D, coords=None) -> MeshGeometry:
+def unstaged(name: str, f):
+    """The default ``staged`` hook of :func:`mesh_geometry_dev` and
+    :func:`laplace`: ``f`` itself."""
+    return f
+
+
+def mesh_geometry_dev(phi, grid: Grid2D, coords=None, *,
+                      staged=unstaged) -> MeshGeometry:
     """Mesh geometry from the deviation potential ``Q = (x^2+y^2)/2 + phi``.
 
     Only the O(1) deviation is differenced (the identity part's derivatives
@@ -85,6 +92,10 @@ def mesh_geometry_dev(phi, grid: Grid2D, coords=None) -> MeshGeometry:
     ``coords=(xx, yy)`` replaces the grid's coordinate fields: the sharded
     droplet path (``dist.droplet``) passes the blocks that match a
     halo-extended ``phi`` block.
+
+    ``staged(name, f)`` stands where the fused PMA kernel keeps ``name`` in
+    shared memory (``dxp`` = d1_x(phi), ``jac``): the CPU rehearsal of its
+    tiling (``ops.pma_substep.pma_substep_tiled_sim``) passes a window.
     """
     dx, dy = grid.dx, grid.dy
 
@@ -97,7 +108,7 @@ def mesh_geometry_dev(phi, grid: Grid2D, coords=None) -> MeshGeometry:
 
     pxx = stencils.d2_x(phi, dx)
     pyy = stencils.d2_y(phi, dy)
-    pxy = _zero_edges(stencils.dxy(phi, dx, dy))
+    pxy = _zero_edges(stencils.d1_y(staged("dxp", stencils.d1_x(phi, dx)), dy))
 
     if coords is None:
         xx_id = grid.xx_op(phi.dtype, phi.device)
@@ -106,9 +117,13 @@ def mesh_geometry_dev(phi, grid: Grid2D, coords=None) -> MeshGeometry:
         xx_id, yy_id = (c.to(phi.dtype) for c in coords)
     qxx = 1.0 + pxx
     qyy = 1.0 + pyy
-    jac = qxx * qyy - pxy * pxy
+    jac = staged("jac", qxx * qyy - pxy * pxy)
     return MeshGeometry(x=xx_id + px, y=yy_id + py, xx=qxx, yy=qyy, xy=pxy,
                         jac=jac)
+
+
+# the form ``ops.pma_substep``'s kernels compute (``GEOMETRY`` there)
+mesh_geometry_dev.pma_kernel = "deviation"
 
 
 def to_deviation(q, grid: Grid2D):
@@ -211,16 +226,18 @@ def _flux_div_x(a, v, inv_h2, edge_dtype=None):
 
 
 def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
-            edge_dtype=None):
+            edge_dtype=None, *, staged=unstaged):
     """Curvilinear Laplacian: returns ``(v_xx, v_yy)`` on the moving mesh.
 
     ``v_ksi``/``v_eta`` are the computational-space first derivatives of
     ``v`` that feed the cross terms.  ``edge_dtype`` widens the one-sided
-    boundary columns (see :func:`_flux_div_x`).
+    boundary columns (see :func:`_flux_div_x`).  ``staged`` as in
+    :func:`mesh_geometry_dev` (``a11``, ``a22``, ``p`` = a12 v_eta, ``q`` =
+    a12 v_ksi).
     """
     j = geom.jac
-    a11 = (geom.xy * geom.xy + geom.yy * geom.yy) / j
-    a22 = (geom.xy * geom.xy + geom.xx * geom.xx) / j
+    a11 = staged("a11", (geom.xy * geom.xy + geom.yy * geom.yy) / j)
+    a22 = staged("a22", (geom.xy * geom.xy + geom.xx * geom.xx) / j)
     a12 = -(geom.xy * (geom.xx + geom.yy)) / j
 
     v_xx = _flux_div_x(a11, v, 1.0 / (grid.dx * grid.dx), edge_dtype)
@@ -228,8 +245,8 @@ def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
 
     # cross terms: (A12 v_eta)_ksi with left/right edges zeroed, and
     # (A12 v_ksi)_eta with top/bottom edges zeroed
-    tx = _zero_edges(stencils.d1_x(a12 * v_eta, grid.dx), rows=False)
-    ty = _zero_edges(stencils.d1_y(a12 * v_ksi, grid.dy), cols=False)
+    tx = _zero_edges(stencils.d1_x(staged("p", a12 * v_eta), grid.dx), rows=False)
+    ty = _zero_edges(stencils.d1_y(staged("q", a12 * v_ksi), grid.dy), cols=False)
     return (v_xx + tx) / j, (v_yy + ty) / j
 
 

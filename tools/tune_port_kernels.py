@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Tile and segment tuning of the port's five redesigned CUDA kernels on
-one GPU: ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]
-[general]``.
+one GPU, and the times of the fused PMA sub-step's kernels:
+``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]
+[general] [pma]``.
 
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
@@ -46,6 +47,14 @@ The sparse kernels' variants (``spmm``, ``spmv``, ``general``) are not in
 the package's library: ``tools/dia_spmv_tuning.cu`` includes the library
 source and exports them, and this script builds it into a library of its
 own under ``_build/tuning``.
+
+- ``pma``: the five kernels of the fused PMA sub-step (``pma_substep.cu``)
+  at 1024^2 and 91x61 f32 on a seeded droplet-like state, each against
+  its bytes bound and its plain (eager) stage (``chip_smoke.pma_kernel_rows``,
+  which holds them to the eager stages bit for bit, ``pma_source`` from
+  768 rows: below, the eager edge rows sum in another order, so there its
+  error is reported, not checked), and the whole sub-step, fused against
+  eager.
 
 One JSON line per measurement, with the card's name and power limit first.
 """
@@ -462,6 +471,40 @@ def tune_general(dev, nrhs: int = 8):
             cs.emit(row)
 
 
+def tune_pma(dev):
+    import torch
+    from iterative_solvers_tpu_torch.meshmove import pma
+    from iterative_solvers_tpu_torch.models import droplet as dp
+    from iterative_solvers_tpu_torch.ops import _build, curvilinear as cv, pma_substep as ps
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
+    ptxas_report(_build.CSRC / "pma_substep.cu")
+    cs.emit({"phase": "tune_pma", "resources": ps.source_resources()})
+    shapes = ((1024, 1024), (61, 91))
+    for row in cs.pma_kernel_rows(dev, shapes):
+        cs.emit({"phase": "tune_pma", **row})
+    params = pma.PMAParams(alpha=0.01, gamma=0.1, mackenzie_c=0.15, spectral_dtype="float32",
+                           mesh_dtype="float32")
+    for ny, nx in shapes:
+        grid, base, s, u = cs.pma_state(ny, nx, dev)
+        uk, ue = ps.film_gradient(u, grid)
+        den = 1.0 - params.gamma * pma._leig_tensor(grid, torch.float32, dev)
+
+        def fused():
+            return ps.substep(base, s, u, uk, ue, den, grid, dt=1e-10, smoothing_iters=4,
+                              mackenzie_c=params.mackenzie_c, alpha=params.alpha)
+
+        def eager():
+            return s + 1e-10 * pma.pma_dqdt(base + s, u, grid, params, dp.monitor_source,
+                                            cv.mesh_geometry_dev)
+
+        fused(), eager()
+        cs.emit({"phase": "tune_pma", "shape": [ny, nx], "kernel": "substep",
+                 "graph_ms": graph_ms(fused), "plain_graph_ms": graph_ms(eager),
+                 "rel_err": float((fused() - eager()).abs().max()) / float(
+                     (eager() - s).abs().max())})
+
+
 def main() -> int:
     import torch
 
@@ -471,7 +514,7 @@ def main() -> int:
     from iterative_solvers_tpu_torch.ops import _build
     from iterative_solvers_tpu_torch.utils.timing import nvidia_smi
 
-    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general"]
+    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general", "pma"]
     print(nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
@@ -485,6 +528,8 @@ def main() -> int:
         tune_spmv(dev)
     if "general" in which:
         tune_general(dev)
+    if "pma" in which:
+        tune_pma(dev)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 
