@@ -19,7 +19,7 @@ import json
 import sys
 import time
 
-from .run import ROOT, fold_worst, load_cell
+from .run import ROOT, fold_worst, load_cell, load_system
 
 
 def control_readings(root, workload: str, seeds, steps: int, device: str = "cuda",
@@ -28,7 +28,7 @@ def control_readings(root, workload: str, seeds, steps: int, device: str = "cuda
     import torch
 
     _, config, traffic, _ = load_cell(root, workload, False)
-    system = importlib.import_module(f"{__package__ or 'portbench'}.systems.{config['system']}")
+    system = load_system(root, config["system"])
     dev = torch.device(device)
     per_seed = []
     for seed in seeds:

@@ -26,3 +26,14 @@ def hbm_bytes_per_s(device_kind: str) -> float:
 def droplet_jvp_bytes(points: int) -> int:
     """Bytes one ``droplet_jvp`` call needs on a grid of ``points`` nodes."""
     return JVP_FIELDS_MOVED * JVP_ITEMSIZE * points
+
+
+def grid_dia_matvec_bytes(grid, shifts, itemsize: int) -> int:
+    """Bytes one ``grid_dia_matvec`` call needs on a clamped (non-cyclic)
+    ``GridDIA`` over ``grid`` = ``(ny, nx)``: of each stored coefficient
+    field the points whose source ``(r + dy, c + dx)`` lies in the grid
+    (a coefficient whose source lies outside adds nothing), x read once
+    and y written once."""
+    ny, nx = grid
+    needed = sum(max(ny - abs(dy), 0) * max(nx - abs(dx), 0) for dy, dx in shifts)
+    return itemsize * (needed + 2 * ny * nx)

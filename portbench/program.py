@@ -92,8 +92,7 @@ def measure(root, workload: str, seed: int, device: str) -> dict:
     cuda = dev.type == "cuda"
     if cuda:
         importlib.import_module(harness.PORT + ".ops._build").load_library()
-    system = importlib.import_module(f"{__package__}.systems.{config['system']}")
-    cell = system.build(config, traffic, seed, dev)
+    cell = harness.load_system(root, config["system"]).build(config, traffic, seed, dev)
     seg = traffic["segment_steps"]
 
     def segment(n=seg):
@@ -110,7 +109,7 @@ def measure(root, workload: str, seed: int, device: str) -> dict:
             segment()
         wall_s = time.perf_counter() - t0
         outside_ms = outside.take()
-    out = reduce_traced([trace.take()], wall_s)
+    out = reduce_traced([trace.take()], wall_s, seg)
     if out is None:
         return None
     out["step_ms"] = 1e3 * wall_s / out["steps"]
@@ -120,13 +119,17 @@ def measure(root, workload: str, seed: int, device: str) -> dict:
     return out
 
 
-def reduce_traced(traces, wall_s):
+def reduce_traced(traces, wall_s, steps=None):
     """Per-step readings of the traced segments ``traces`` (``utils.trace``
-    ``Trace`` values) whose steps took ``wall_s`` host seconds; None when
-    they hold no ``step`` span."""
+    ``Trace`` values) whose steps took ``wall_s`` host seconds: over their
+    ``step`` spans, or, where the program opened none (an entry point
+    without one, such as a solver called directly), over the ``steps``
+    that the caller ran; None when neither gives a count.  ``counters``
+    holds every counter the program recorded, summed and divided by the
+    steps."""
     from iterative_solvers_tpu_torch.utils.trace import self_ns
 
-    steps = sum(1 for t in traces for s in t.spans if s.name == "step")
+    steps = sum(1 for t in traces for s in t.spans if s.name == "step") or steps
     if not steps:
         return None
     total = {}
@@ -144,6 +147,7 @@ def reduce_traced(traces, wall_s):
     return {
         "steps": steps,
         "spans": {n: [calls[n], ns[n] * 1e-6] for n in sorted(ns)},
+        "counters": {n: v / steps for n, v in sorted(total.items())},
         "host.syncs": total.get("host.syncs", 0) / steps,
         "host.wait_ms": total.get("host.wait_ns", 0) * 1e-6 / steps,
         "newton.self_ms": solve_self * 1e-6 / steps if "newton.solve" in calls else None,

@@ -6,8 +6,9 @@ from the root of a checkout that holds ``BENCHMARK.json``.  The cell's
 configuration, traffic mix and metric readers are found by the names that
 ``BENCHMARK.json`` gives: ``configs[].file``, ``portbench/traffic/<traffic>.json``
 and ``portbench/metrics/<metric>.py``; a configuration's ``system`` names
-its step builder, ``portbench/systems/<system>.py``.  So a later cell, mix
-or metric is added by files and entries alone.
+its step builder, ``portbench/systems/<system>.py``, loaded from the
+checkout's own folder as the readers are.  So a later configuration, cell,
+mix or metric is added by files and entries alone.
 
 A run: set-up (imports, the kernel library loaded or built into the
 program's ``_build/``, the state made from the seed, ``warmup_steps``
@@ -118,6 +119,17 @@ def load_reader(root: pathlib.Path, name: str):
     return mod
 
 
+def load_system(root: pathlib.Path, name: str):
+    """The step builder ``portbench/systems/<name>.py`` of the checkout
+    ``root``, loaded by its path as a module of this package, so that its
+    relative imports find the package's reference and helpers."""
+    path = pathlib.Path(root) / PKG.name / "systems" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"{PKG.name}.systems.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader_beside(path: str, name: str):
     """The reader of metric ``name`` in the folder of the reader file
     ``path``: a metric that reads the same quantity under another name
@@ -166,7 +178,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         lap[0] = now
 
     importlib.import_module(PORT)
-    system = importlib.import_module(f"{__package__ or PKG.name}.systems.{config['system']}")
+    system = load_system(root, config["system"])
     mark("imports")
     if cuda:
         build = importlib.import_module(PORT + ".ops._build")
@@ -251,6 +263,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         for name, key in cell.own.items():
             gap = abs(readings[name] - info[key]) / max(abs(readings[name]), 1e-300)
             own_gap[name] = max(own_gap.get(name, 0.0), gap)
+    run.meta.update(cell.meta)      # and what the checks added to it
     failed = sum(1 for info in run.infos if not info["converged"])
     checks = [{"name": n, "value": worst[n], "limit": lim, "rule": rule,
                "ok": bool(RULES[rule](worst[n], lim))} for n, (lim, rule) in limits.items()]

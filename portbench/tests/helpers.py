@@ -1,4 +1,9 @@
-"""Small-size copies of the benchmark's cells for the CPU tests."""
+"""Small-size copies of the benchmark's cells for the CPU tests.
+
+Each configuration's CPU size is a file of its own,
+``portbench/tests/small/<config>.json``: the small configuration's name and
+the keys it overrides.  A configuration is added with that file beside its
+own, and no file here changes."""
 from __future__ import annotations
 
 import json
@@ -10,20 +15,29 @@ from portbench import run as harness
 
 PKG = pathlib.Path(harness.__file__).resolve().parent
 ROOT = PKG.parent
-SMALL = {"sh2048": {"name": "sh24", "n": 24, "d": 15.0},
-         "droplet1024": {"name": "droplet91", "nx": 91, "ny": 61}}
+SMALL = pathlib.Path(PKG.name) / "tests" / "small"
 
 
-def small_root(tmp: pathlib.Path) -> pathlib.Path:
-    """A checkout-like root with the benchmark folder and a BENCHMARK.json
-    whose cells are the real ones at small sizes (SH n = 24, the droplet at
-    the fixture's 91x61), named ``<small config>.<traffic>``."""
-    shutil.copytree(PKG, tmp / PKG.name, ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+def small_size(src: pathlib.Path, config: str) -> dict:
+    """The CPU size of ``config`` in the checkout ``src``."""
+    path = src / SMALL / f"{config}.json"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no CPU size for the configuration {config!r}: add {SMALL / (config + '.json')} "
+            "with the small configuration's name and the keys it overrides")
+    return json.loads(path.read_text())
+
+
+def small_root(tmp: pathlib.Path, src: pathlib.Path = ROOT) -> pathlib.Path:
+    """A checkout-like root with the benchmark folder of ``src`` and a
+    BENCHMARK.json whose cells are ``src``'s at their CPU sizes
+    (``tests/small/``), named ``<small config>.<traffic>``."""
+    shutil.copytree(src / PKG.name, tmp / PKG.name, ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((src / "BENCHMARK.json").read_text())
     names = {}
     for entry in bench["configs"]:
-        cfg = json.loads((ROOT / entry["file"]).read_text())
-        small = SMALL[entry["name"]]
+        cfg = json.loads((src / entry["file"]).read_text())
+        small = small_size(src, entry["name"])
         cfg.update({k: v for k, v in small.items() if k != "name"})
         path = f"{PKG.name}/configs/{small['name']}.json"
         (tmp / path).write_text(json.dumps(cfg))

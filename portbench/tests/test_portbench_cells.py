@@ -107,3 +107,100 @@ def test_checked_steps_lie_in_the_first_segment(traffic):
         picks = sample_picks(mix, seed)
         assert 0 in picks and len(picks) == mix["check_samples"]
         assert max(picks) < mix["segment_steps"]
+
+
+DECAY_SYSTEM = '''"""A configuration added by files alone: each step halves a field on
+the device and counts itself through the program's own counter, with no
+``step`` span."""
+import torch
+
+
+class Cell:
+    def __init__(self, config, traffic, seed, dev):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        n = config["n"]
+        self.rate = config["rate"]
+        self.initial = torch.randn((n, n), generator=g, dtype=torch.float64, device=dev)
+        self.spans, self.own, self.own_s, self.meta = {}, {}, 0.0, {}
+
+    def step(self, x):
+        from iterative_solvers_tpu_torch.utils import trace
+        trace.count("decay.calls")
+        return self.rate * x, {"converged": True}
+
+    def readings(self, sample):
+        x, y = sample
+        return {"decay_error": float((y - self.rate * x).abs().max())}
+
+    def limits(self):
+        return {"decay_error": (0.0, "<=")}
+
+    def controls(self):
+        return {}
+
+    def free(self):
+        self.initial = None
+
+
+def build(config, traffic, seed, dev):
+    return Cell(config, traffic, seed, dev)
+'''
+
+
+def _src_with_a_new_configuration(src):
+    """A copy of the checkout with a configuration ``decay8`` added as new
+    files (its configuration, CPU size, traffic, system and metric reader)
+    and entries in BENCHMARK.json."""
+    import shutil
+    shutil.copytree(PKG, src / PKG.name, ignore=shutil.ignore_patterns("__pycache__"))
+    pkg = src / PKG.name
+    (pkg / "configs" / "decay8.json").write_text(json.dumps(
+        {"name": "decay8", "system": "decay", "source": "a test", "n": 8, "rate": 0.5,
+         "reduced": [], "guarantees": {"decay_error": "exact"}}))
+    (pkg / "tests" / "small" / "decay8.json").write_text(json.dumps({"name": "decay4", "n": 4}))
+    (pkg / "traffic" / "halve.json").write_text(json.dumps(
+        {"stepper": "halve", "segment_steps": 3, "warmup_steps": 1, "check_samples": 2}))
+    (pkg / "systems" / "decay.py").write_text(DECAY_SYSTEM)
+    (pkg / "metrics" / "decay.calls.py").write_text(
+        "from portbench.program import reading\n\n\ndef read(run):\n"
+        "    r = reading(run)\n    return r['counters'].get('decay.calls') if r else None\n")
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "decay8", "source": "a test",
+                             "file": f"{PKG.name}/configs/decay8.json", "reduced": [],
+                             "why": "a configuration added by files alone"})
+    bench["workloads"].append({"name": "decay8.halve", "config": "decay8", "traffic": "halve",
+                               "chips": 1, "why": "a cell of the added configuration"})
+    bench["per_layer"].append({"name": "decay.calls", "unit": "calls/step", "better": "lower",
+                               "source": "program_counter", "layer": "decay",
+                               "moves": "step_ms", "workloads": ["decay8.halve"]})
+    for m in bench["end_to_end"]:
+        if m["name"] == "step_ms":
+            m["workloads"].append("decay8.halve")
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    return src
+
+
+def test_a_configuration_is_added_by_files_alone(tmp_path):
+    src = _src_with_a_new_configuration(tmp_path / "src")
+    root = small_root(tmp_path / "small", src=src)
+    result, checks, run = run_small(root, "decay4.halve", seconds=0.2, trace=True)
+    assert result["correct"] and run.steps > 0
+    assert result["metrics"]["decay.calls"]["value"] == 1.0
+    # the program opened no step span: its counters are over the segment's own steps
+    assert run.meta["program"]["steps"] == 3 and run.meta["program"]["spans"] == {}
+    result, _, _ = run_small(root, "decay4.halve", seconds=0.2)
+    assert set(result["metrics"]) == {"setup_s", "step_ms"}
+
+
+def test_small_root_names_the_missing_cpu_size(tmp_path):
+    src = _src_with_a_new_configuration(tmp_path / "src")
+    (src / PKG.name / "tests" / "small" / "decay8.json").unlink()
+    with pytest.raises(FileNotFoundError, match=r"tests/small/decay8\.json"):
+        small_root(tmp_path / "small", src=src)
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_has_its_cpu_size(config):
+    from portbench.tests.helpers import small_size
+    small = small_size(ROOT, config)
+    assert NAME.fullmatch(small["name"]) and small["name"] != config

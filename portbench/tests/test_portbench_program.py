@@ -55,6 +55,28 @@ def test_reduce_traced_reads_per_step():
     assert program.reduce_traced([], 1.0) is None
 
 
+def test_reduce_traced_without_step_spans_takes_the_callers_steps():
+    from iterative_solvers_tpu_torch.utils.trace import Trace
+
+    ms = 1_000_000
+    t = Trace([], {None: {"host.syncs": 2108, "host.wait_ns": 30 * ms, "cg.restarts": 4}})
+    assert program.reduce_traced([t], wall_s=1.0) is None
+    r = program.reduce_traced([t], wall_s=1.0, steps=2)
+    assert r["steps"] == 2 and r["spans"] == {}
+    assert r["counters"] == {"cg.restarts": 2.0, "host.syncs": 1054.0, "host.wait_ns": 15 * ms}
+    assert r["host.syncs"] == 1054.0 and r["host.wait_ms"] == pytest.approx(15.0)
+    assert r["newton.self_ms"] is None and r["pma.substep_ms"] is None
+    # where there are step spans, they count, whatever the caller ran
+    traces = synthetic_traces()
+    assert program.reduce_traced(traces, 0.2, steps=5) == program.reduce_traced(traces, 0.2)
+    assert program.reduce_traced(traces, 0.2)["counters"] == {"host.syncs": 7.0,
+                                                              "host.wait_ns": 2 * ms}
+    run = Run()
+    run.program_reading = r
+    assert reader("host.syncs.cg")(run) == 1054.0
+    assert reader("host.wait_ms.cg")(run) == pytest.approx(15.0)
+
+
 def test_readers_read_the_program_reading():
     run = Run()
     run.program_reading = program.reduce_traced(synthetic_traces(), wall_s=0.2)

@@ -125,16 +125,39 @@ def test_device_busy_reads_only_device_intervals(ns):
     assert union(device)[0] == pytest.approx(40.0)     # 10-40 and 30-50
 
 
+def test_cg_readers():
+    run = traced_run()
+    run.trace["kernels"]["void grid_dia_matvec_tiled_kernel<MvF64, false, 0>"] = [
+        4, 4 * 22e-6]
+    run.meta = {"grid": [999, 999], "itemsize": 8,
+                "shifts": [[-1, 0], [0, -1], [0, 0], [0, 1], [1, 0]]}
+    need = 8 * (999 * 999 + 4 * 998 * 999 + 2 * 999 * 999)
+    assert peaks.grid_dia_matvec_bytes((999, 999), run.meta["shifts"], 8) == need
+    assert reader("grid_dia_matvec_roofline")(run) == pytest.approx(
+        100 * need / 3.35e12 / 22e-6)
+    run.step_s = [0.5] * 5
+    run.segment_steps = 2
+    run.infos = [{"krylov_iters": k, "converged": True} for k in (10, 12, 10, 12, 99)]
+    assert reader("cg.iters")(run) == pytest.approx(11.0)     # the last, partial segment out
+    run.window_s = 2.5
+    for name in ("step_ms", "host.launches", "device.idle"):
+        assert reader(name + ".cg")(run) == reader(name)(run) is not None
+
+
 def test_readers_find_nothing_and_return_nothing():
     run = Run()
     for name in ("device.idle", "host.launches", "sh_operator.us", "droplet_jvp_roofline",
                  "krylov.ms", "pma.share", "newton.iters", "step_ms", "step_p95_ms",
                  "device_ms", "step_ms.droplet", "newton.iters.droplet", "krylov.ms.droplet",
-                 "host.launches.droplet", "device.idle.droplet"):
+                 "host.launches.droplet", "device.idle.droplet", "cg.iters",
+                 "grid_dia_matvec_roofline", "host.syncs.cg", "host.wait_ms.cg", "step_ms.cg",
+                 "host.launches.cg", "device.idle.cg"):
         assert reader(name)(run) is None, name
     run.trace = summarize([], [], 1.0, 1)
     run.meta, run.device_kind = {"points": 4}, KIND
     assert reader("droplet_jvp_roofline")(run) is None and reader("device.idle")(run) is None
+    run.meta.update(grid=[2, 2], shifts=[[0, 0]], itemsize=8)
+    assert reader("grid_dia_matvec_roofline")(run) is None
     run.spans = {"krylov": [0, 0.0]}
     run.step_s, run.window_s = [0.1], 0.1
     assert reader("krylov.ms")(run) is None
@@ -146,3 +169,4 @@ def test_peaks_are_the_spec():
     with pytest.raises(KeyError):
         peaks.hbm_bytes_per_s("another card")
     assert math.isclose(reader("step_p95_ms")(type("R", (), {"step_s": [0.5]})()), 500.0)
+
