@@ -13,7 +13,11 @@ step ``dt = k min (1+u)^3`` (:func:`compute_g`) and an explicit PMA mesh
 update per physical step.
 
 :func:`make_step` reads ``min (1+u)^3`` on the host once a step (the dt of
-the step is a Python float, as the JAX step's is an f64 scalar);
+the step is a Python float, as the JAX step's is an f64 scalar), and with
+the tracing of ``utils.trace`` on records a ``step`` span, a ``mems.mesh``
+span around the mesh half (monitor, smoothing, PMA solve) and the counter
+``mems.residual_evals`` (every residual evaluation of the step's JFNK
+solve, the finite-difference matvecs included);
 :func:`evolve` is a host loop over it and :func:`evolve_coupled` hands the
 coupled ``(u, Q)`` system to :class:`..solvers.bdf.BDF`, on a CUDA device
 with the right-hand side replayed as one CUDA graph
@@ -37,6 +41,7 @@ from ..meshmove.pma import PMAParams, solve_pma
 from ..ops import curvilinear, stencils
 from ..ops.curvilinear import MeshGeometry
 from ..solvers.newton import NewtonKrylov
+from ..utils.trace import count, span, to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,23 +189,28 @@ def make_step(cfg: MEMSConfig, solver: NewtonKrylov | None = None,
     grid = cfg.grid
 
     def step(u, q):
-        u = torch.as_tensor(u, device=dev)
-        q = torch.as_tensor(q, device=dev)
-        geom = curvilinear.mesh_geometry(q, grid)
-        dt = compute_g(u, cfg).item() * cfg.k
-        src = monitor_source(u, geom, grid, cfg)
-        mon = smooth_and_regularise(src, geom.jac, grid.dx, grid.dy,
-                                    cfg.smoothing_iters, 1.0)
-        q_dt = solve_pma(mon, geom.jac, grid, cfg.pma)
-        cn_term = rhs_pde(u, geom, cfg)
-        res = solver.solve(
-            partial(cn_residual, u_old=u, cn_term=cn_term, dt=dt, geom=geom,
-                    cfg=cfg),
-            u,
-        )
-        q_new = q + dt * q_dt
-        return MEMSStepResult(u=res.x, q=q_new, dt=dt,
-                              newton_iters=res.iters, converged=res.converged)
+        with span("step"):
+            u = torch.as_tensor(u, device=dev)
+            q = torch.as_tensor(q, device=dev)
+            geom = curvilinear.mesh_geometry(q, grid)
+            dt = to_host(compute_g(u, cfg), "item") * cfg.k
+            with span("mems.mesh"):
+                src = monitor_source(u, geom, grid, cfg)
+                mon = smooth_and_regularise(src, geom.jac, grid.dx, grid.dy,
+                                            cfg.smoothing_iters, 1.0)
+                q_dt = solve_pma(mon, geom.jac, grid, cfg.pma)
+            cn_term = rhs_pde(u, geom, cfg)
+
+            def residual(v):
+                # Newton's own evaluations and every finite-difference matvec
+                count("mems.residual_evals")
+                return cn_residual(v, u_old=u, cn_term=cn_term, dt=dt, geom=geom,
+                                   cfg=cfg)
+
+            res = solver.solve(residual, u)
+            q_new = q + dt * q_dt
+            return MEMSStepResult(u=res.x, q=q_new, dt=dt,
+                                  newton_iters=res.iters, converged=res.converged)
 
     return step
 

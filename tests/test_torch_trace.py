@@ -11,6 +11,7 @@ import torch
 from iterative_solvers_tpu_torch.io import convert, fixtures as tfx
 from iterative_solvers_tpu_torch.meshmove import pma as tpma
 from iterative_solvers_tpu_torch.models import droplet as tdp
+from iterative_solvers_tpu_torch.models import mems as tm
 from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
 from iterative_solvers_tpu_torch.solvers.cg import cg
 from iterative_solvers_tpu_torch.solvers.gmres import gmres
@@ -20,6 +21,7 @@ from iterative_solvers_tpu_torch.utils import trace
 from iterative_solvers_tpu_torch.utils.trace import Span
 
 SH = sh.SHConfig(n=32, d=20.0)
+MEMS = tm.MEMSConfig(n=21)
 
 
 @pytest.fixture(autouse=True)
@@ -216,7 +218,53 @@ def test_pma_loop_reads_nothing_and_the_steady_iteration_once_a_substep(droplet)
     assert iters == 3 and syncs(trace.take()) == 3
 
 
+def _mems_steps(nsteps=2):
+    """``nsteps`` MEMS steps from the flat state with the published solver."""
+    step = tm.make_step(MEMS, NewtonKrylov(f_tol=6e-6, maxiter=40, inner_m=20, outer_k=8),
+                        device="cpu")
+    u, q = tm.initial_state(MEMS, device="cpu")
+    outs = []
+    for _ in range(nsteps):
+        outs.append(step(u, q))
+        u, q = outs[-1].u, outs[-1].q
+    return outs
+
+
+def test_mems_step_spans_its_mesh_half_counts_its_residuals_and_its_dt_read(monkeypatch):
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(trace._state.step)
+        return cn_residual(*args, **kw)
+
+    cn_residual = tm.cn_residual
+    monkeypatch.setattr(tm, "cn_residual", counted)
+    with trace.tracing():
+        outs = _mems_steps()
+    t = trace.take()
+    roots = [i for i, s in enumerate(t.spans) if s.parent is None]
+    assert [t.spans[i].name for i in roots] == ["step", "step"]
+    for i, out in zip(roots, outs):
+        sid = t.spans[i].step
+        inside = Counter(s.name for s in t.spans if s.parent == i)
+        assert inside["mems.mesh"] == 1 and inside["newton.solve"] == 1
+        assert out.converged and out.newton_iters >= 1
+        assert t.counters[sid]["mems.residual_evals"] == calls.count(sid) > out.newton_iters
+    assert sum(c["mems.residual_evals"] for c in t.counters.values()) == len(calls)
+    # the dt read is counted under host.syncs: one read a step more than with
+    # the same read made directly
+    monkeypatch.setattr(tm, "to_host", lambda v, form: v.item())
+    with trace.tracing():
+        again = _mems_steps()
+    t2 = trace.take()
+    assert [o.newton_iters for o in again] == [o.newton_iters for o in outs]
+    assert syncs(t) == syncs(t2) + 2
+
+
 def _run(case, droplet):
+    if case == "mems":
+        out = _mems_steps(1)[0]
+        return (out.u, out.q), out
     if case == "sh_cn":
         return sh.make_cn_step(SH, sh.fast_solver(SH), device="cpu")(sh_field())
     if case == "sh_semi":
@@ -227,7 +275,7 @@ def _run(case, droplet):
     return (out.u, out.q), out
 
 
-@pytest.mark.parametrize("case", ["sh_cn", "sh_semi", "droplet"])
+@pytest.mark.parametrize("case", ["sh_cn", "sh_semi", "droplet", "mems"])
 def test_results_bit_for_bit_with_tracing_on_and_off(case, droplet):
     off = _run(case, droplet)
     with trace.tracing():
