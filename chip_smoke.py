@@ -276,6 +276,20 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   phase 30 caps the monitor, a form the kernels do
                   not compute, so it launches none; phases 31-36 (the
                   1024^2 flagship's) are read, not checked.
+40. fd_stencil  — run after phase 39: the stencils' kernel
+                  (``ops/csrc/fd_stencil.cu`` through ``ops/stencils``'s
+                  ``d1_x``, ``d1_y``, ``d2_x``, ``d2_y``) at the main paths'
+                  shapes (51^2 f64 for MEMS, 61x91 f32, 1024^2 f32 and
+                  f64 for the droplet), one launch a call, each against its
+                  plain body with the edge rows summed as one FMA chain, bit
+                  for bit and with the plain body's strides, and against the
+                  plain body as it is where its edge product has 768 rows
+                  or more; with ms, graph ms, the plain body's ms and graph
+                  ms and the bytes bound.  The kernel's launches are zeroed
+                  before phases 3-6, 17, 22 and 29 and read after, with the
+                  program's tracing on: each stencil call of a phase is one
+                  launch, and each MEMS step of phase 22 makes 8 calls a
+                  residual evaluation and 14 more (``stencil.calls``).
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -292,6 +306,7 @@ much.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -575,6 +590,10 @@ def synthetic_jvp_inputs(ny: int, nx: int, dev, seed: int = 7):
 PMA_SHAPES = ((N, N), (2048, 2048))   # the droplet phases' grids
 PMA_EXACT_FROM = 768   # rows from which the eager edge rows sum as the kernels do
 PMA_FLOOR_ULPS = 4
+# phase 40's (shape, dtype): MEMS, the 91x61 droplet's f32, the 1024^2 droplet's
+FD_CASES = (((51, 51), "float64"), ((61, 91), "float32"), ((N, N), "float32"),
+            ((N, N), "float64"))
+FD_EXACT_FROM = 768    # rows from which the plain body's edge product chains
 
 
 def pma_state(ny: int, nx: int, dev):
@@ -612,7 +631,7 @@ def pma_kernel_rows(dev, shapes) -> list:
     from iterative_solvers_tpu_torch.meshmove import pma
     from iterative_solvers_tpu_torch.meshmove.monitor import smooth_pass
     from iterative_solvers_tpu_torch.models import droplet as dp
-    from iterative_solvers_tpu_torch.ops import curvilinear as cv, pma_substep as ps
+    from iterative_solvers_tpu_torch.ops import curvilinear as cv, pma_substep as ps, stencils
     from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     alpha, gamma, c = 0.01, 0.1, 0.15
@@ -624,8 +643,10 @@ def pma_kernel_rows(dev, shapes) -> list:
                                             device=dev)
 
         def eager_source():
-            geom = cv.mesh_geometry_dev(base + s, grid)
-            return dp.monitor_source(u, geom, grid), geom
+            # the stencils' plain bodies: on the card d1_x and the others
+            # launch a kernel of their own (phase 40)
+            geom = cv.mesh_geometry_dev(base + s, grid, fd=stencils.PLAIN)
+            return dp.monitor_source(u, geom, grid, fd=stencils.PLAIN), geom
 
         src, geom = eager_source()
         jac = geom.jac
@@ -726,6 +747,95 @@ def pma_launches(label: str, expect: bool = True) -> dict:
               and got["smooth"] >= got["source"],
               f"{label}: the fused PMA sub-step's launches {got}")
     return got
+
+
+def fd_stencil_rows(dev) -> list:
+    """Phase 40: each of the four stencils at each of ``FD_CASES`` on a
+    seeded field, one launch a call, against its plain body with the edge
+    rows summed as one FMA chain (``max_abs_err``, which must be 0, with the
+    plain body's strides) and against the plain body as it is
+    (``err_vs_plain``, which must be 0 from ``FD_EXACT_FROM`` rows of the
+    edge product).  Times: ``ms`` (CUDA events through the wrapper),
+    ``device_ms`` (graph replay), ``plain_ms`` / ``plain_device_ms`` (the
+    plain body, the same two ways) and the bytes bound (the field read once
+    and written once)."""
+    import torch
+    from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+    from tests.test_torch_fd_stencil import edge_rows_as_one_fma_chain
+
+    gen = torch.Generator(device="cpu").manual_seed(40)
+    rows = []
+    for shape, dtype in FD_CASES:
+        u = torch.randn(shape, generator=gen, dtype=torch.float64)
+        u = u.to(dev, getattr(torch, dtype))
+        nbytes = 2 * u.numel() * u.element_size()
+        for name in ("d1_x", "d1_y", "d2_x", "d2_y"):
+            h = 0.1 if name.endswith("x") else 0.07
+            kernel = lambda: getattr(stencils, name)(u, h)  # noqa: E731
+            plain = lambda: getattr(stencils, f"{name}_plain")(u, h)  # noqa: E731
+            before = stencils.fd_stencil_kernel.launches
+            got = kernel()
+            label = f"{name} {shape[0]}x{shape[1]} {dtype}"
+            check(stencils.fd_stencil_kernel.launches == before + 1,
+                  f"fd_stencil {label}: not one launch a call")
+            as_is = plain()
+            edge_rows = stencils._edge_rows
+            stencils._edge_rows = edge_rows_as_one_fma_chain
+            try:
+                chained = plain()
+            finally:
+                stencils._edge_rows = edge_rows
+            err = float((got - chained).abs().max())
+            err_plain = float((got - as_is).abs().max())
+            product_rows = shape[0] if name.endswith("x") else shape[1]
+            check(err == 0.0 and got.stride() == chained.stride(),
+                  f"fd_stencil {label}: off the chained plain body by {err}, strides "
+                  f"{got.stride()} against {chained.stride()}")
+            if product_rows >= FD_EXACT_FROM:
+                check(err_plain == 0.0, f"fd_stencil {label}: off the plain body by {err_plain}")
+            row = {"name": name, "shape": list(shape), "dtype": dtype, "max_abs_err": err,
+                   "err_vs_plain": err_plain, "exact_vs_plain_checked": product_rows >= FD_EXACT_FROM,
+                   "ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
+                   "plain_ms": cuda_ms(plain), "plain_device_ms": graph_ms(plain),
+                   "bound_ms": nbytes / hbm_bytes_per_s() * 1e3, "bound_by": "bytes",
+                   "library_ms": None}
+            check_bound(f"fd_stencil {label}", row["device_ms"], row["bound_ms"], nbytes)
+            emit({"phase": "fd_stencil", **row})
+            rows.append(row)
+    return rows
+
+
+FD_BY_PHASE = {}       # the stencils' kernel launches by phase
+
+
+@contextlib.contextmanager
+def fd_stencil_launches(label: str, whole_step=None):
+    """Runs the block with the stencils' kernel launches zeroed and the
+    program's tracing on, then puts its launches in ``FD_BY_PHASE``: more
+    than none, and one for each stencil call (``stencil.calls`` and
+    ``stencil.kernel`` of every step and outside any).  ``whole_step(c)``:
+    the calls each traced step must count, from its counters ``c``."""
+    from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.utils import trace
+
+    stencils.fd_stencil_kernel.launches = 0
+    trace.take()
+    with trace.tracing():
+        yield
+    launches = FD_BY_PHASE[label] = stencils.fd_stencil_kernel.launches
+    counters = trace.take().counters
+    calls, kernel = (sum(c.get(k, 0) for c in counters.values())
+                     for k in ("stencil.calls", "stencil.kernel"))
+    check(0 < launches == calls == kernel,
+          f"{label}: {launches} fd_stencil launches for {calls} stencil calls, "
+          f"{kernel} of them counted as launched")
+    if whole_step is not None:
+        steps = {k: c for k, c in counters.items() if k is not None}
+        check(bool(steps), f"{label}: no traced step")
+        for k, c in steps.items():
+            check(c.get("stencil.calls", 0) == whole_step(c),
+                  f"{label}: step {k} counts {c}, not {whole_step(c)} stencil calls")
 
 
 # -- the Swift-Hohenberg slice ---------------------------------------------------
@@ -1833,50 +1943,52 @@ def droplet_driver_phases(dev, prepared) -> tuple:
     nsteps = 3
     launches = 0
     pma_launches("before phase 17", expect=False)
-    fix, golden = fx.load_golden_step()
-    cfg_s = fx.config_for(fix)
-    u_s = torch.tensor(fix.u, device=dev)
-    q_s = torch.tensor(fix.q, device=dev)
-    pairs = {"91x61": residual_pair(dp, cfg_s, u_s, q_s, curvilinear.mesh_geometry,
-                                    float(golden["dt"]), dev),
-             f"{N}x{N}": residual_pair(dp, cfg_l, u_l, phi_l,
-                                       curvilinear.mesh_geometry_dev, DT_MAIN, dev)}
-    check(pairs["91x61"]["max_abs_diff"] <= 1e-10,
-          f"df64 residual off the f64 one at 91x61 by {pairs['91x61']['max_abs_diff']}")
-    emit({"phase": "df64_residual", **pairs})
-    for mode in ("f64", "df64"):
-        jvp_matvec.launches = 0
-        with StepLog(dp) as log:
-            (u, phi, t, (iters, f_norms, dts)), secs = timed(lambda: dp.evolve(
-                cfg_l, u_l, phi_l, dt=DT_MAIN, nsteps=nsteps, dtmesh=dtmesh_l,
-                pma_loops=20, solver=solver, deviation_form=True,
-                jvp_dtype="float32", jvp_kernel=True, residual_mode=mode, device=dev))
-        n_launch = jvp_matvec.launches
-        launches += n_launch
-        recs = log.records
-        check(len(recs) == nsteps, f"evolve {mode}: {len(recs)} steps logged")
-        check(all(r["converged"] for r in recs) and bool(np.all(f_norms <= solver.f_tol)),
-              f"evolve {mode} at {N}^2: a step did not converge (f_norms {f_norms.tolist()})")
-        # the dt law recomputed on the host from the logged states
-        scale, want = 1.0, []
-        for r in recs:
-            want.append(DT_MAIN * scale)
-            scale += float(np.exp(-10.0 * float(torch.sqrt(
-                torch.sum((r["u_out"] - r["u_in"]) ** 2)))))
-        check(np.allclose(dts, want, rtol=1e-12, atol=0),
-              f"evolve {mode}: dts {dts.tolist()} off the scale law {want}")
-        check(list(iters) == [r["newton_iters"] for r in recs], f"evolve {mode}: counts")
-        min_jac = float(torch.min(curvilinear.mesh_geometry_dev(phi, cfg_l.grid).jac))
-        check(min_jac > 0, f"evolve {mode}: mesh tangled, min jac {min_jac}")
-        check(bool(torch.isfinite(u).all()), f"evolve {mode}: state not finite")
-        check(n_launch > 0, f"evolve {mode} launched no droplet_jvp kernel")
-        ms = sorted(r["ms"] for r in recs)
-        emit({"phase": "droplet_evolve", "n": N, "residual_mode": mode, "dt": DT_MAIN,
-              "steps": nsteps, "step_ms": [r["ms"] for r in recs],
-              "step_ms_median": ms[len(ms) // 2], "newton_iters": iters.tolist(),
-              "f_norms": f_norms.tolist(), "dts": dts.tolist(), "t": t,
-              "launches": n_launch, "min_jac": min_jac, "seconds": secs})
-        del recs, log
+    with fd_stencil_launches("droplet_evolve"):
+
+        fix, golden = fx.load_golden_step()
+        cfg_s = fx.config_for(fix)
+        u_s = torch.tensor(fix.u, device=dev)
+        q_s = torch.tensor(fix.q, device=dev)
+        pairs = {"91x61": residual_pair(dp, cfg_s, u_s, q_s, curvilinear.mesh_geometry,
+                                        float(golden["dt"]), dev),
+                 f"{N}x{N}": residual_pair(dp, cfg_l, u_l, phi_l,
+                                           curvilinear.mesh_geometry_dev, DT_MAIN, dev)}
+        check(pairs["91x61"]["max_abs_diff"] <= 1e-10,
+              f"df64 residual off the f64 one at 91x61 by {pairs['91x61']['max_abs_diff']}")
+        emit({"phase": "df64_residual", **pairs})
+        for mode in ("f64", "df64"):
+            jvp_matvec.launches = 0
+            with StepLog(dp) as log:
+                (u, phi, t, (iters, f_norms, dts)), secs = timed(lambda: dp.evolve(
+                    cfg_l, u_l, phi_l, dt=DT_MAIN, nsteps=nsteps, dtmesh=dtmesh_l,
+                    pma_loops=20, solver=solver, deviation_form=True,
+                    jvp_dtype="float32", jvp_kernel=True, residual_mode=mode, device=dev))
+            n_launch = jvp_matvec.launches
+            launches += n_launch
+            recs = log.records
+            check(len(recs) == nsteps, f"evolve {mode}: {len(recs)} steps logged")
+            check(all(r["converged"] for r in recs) and bool(np.all(f_norms <= solver.f_tol)),
+                  f"evolve {mode} at {N}^2: a step did not converge (f_norms {f_norms.tolist()})")
+            # the dt law recomputed on the host from the logged states
+            scale, want = 1.0, []
+            for r in recs:
+                want.append(DT_MAIN * scale)
+                scale += float(np.exp(-10.0 * float(torch.sqrt(
+                    torch.sum((r["u_out"] - r["u_in"]) ** 2)))))
+            check(np.allclose(dts, want, rtol=1e-12, atol=0),
+                  f"evolve {mode}: dts {dts.tolist()} off the scale law {want}")
+            check(list(iters) == [r["newton_iters"] for r in recs], f"evolve {mode}: counts")
+            min_jac = float(torch.min(curvilinear.mesh_geometry_dev(phi, cfg_l.grid).jac))
+            check(min_jac > 0, f"evolve {mode}: mesh tangled, min jac {min_jac}")
+            check(bool(torch.isfinite(u).all()), f"evolve {mode}: state not finite")
+            check(n_launch > 0, f"evolve {mode} launched no droplet_jvp kernel")
+            ms = sorted(r["ms"] for r in recs)
+            emit({"phase": "droplet_evolve", "n": N, "residual_mode": mode, "dt": DT_MAIN,
+                  "steps": nsteps, "step_ms": [r["ms"] for r in recs],
+                  "step_ms_median": ms[len(ms) // 2], "newton_iters": iters.tolist(),
+                  "f_norms": f_norms.tolist(), "dts": dts.tolist(), "t": t,
+                  "launches": n_launch, "min_jac": min_jac, "seconds": secs})
+            del recs, log
     pma_evolve = pma_launches("droplet_evolve")
     emit({"phase": "droplet_evolve_pma", "pma_substep_launches": pma_evolve})
 
@@ -1992,18 +2104,21 @@ def mems_phases(dev) -> list:
     step = mems.make_step(cfg, solver, device=dev)
     u, q = mems.initial_state(cfg, device=dev)
     t, recs, worst = 0.0, [], {"u_min": 0.0, "dt": 0.0}
-    for s in range(1, TOUCHDOWN_STEPS + 1):
-        out, secs = timed(lambda: step(u, q))
-        u, q, t = out.u, out.q, t + out.dt
-        recs.append({"ms": secs * 1e3, "newton_iters": out.newton_iters,
-                     "converged": out.converged, "u_min": float(torch.min(u)),
-                     "dt": out.dt, "t": t})
-        if s in record:
-            row = record[s]
-            recs[-1]["min_spacing"] = float(min_spacing(
-                curvilinear.mesh_geometry(q, cfg.grid)))
-            worst["u_min"] = max(worst["u_min"], abs(recs[-1]["u_min"] - row["u_min"]))
-            worst["dt"] = max(worst["dt"], abs(out.dt - row["dt"]) / row["dt"])
+    # a step: 8 stencil calls a residual evaluation, 8 for cn_term, 6 for the geometry
+    per_step = lambda c: 8 * c.get("mems.residual_evals", 0) + 14  # noqa: E731
+    with fd_stencil_launches("mems_touchdown", per_step):
+        for s in range(1, TOUCHDOWN_STEPS + 1):
+            out, secs = timed(lambda: step(u, q))
+            u, q, t = out.u, out.q, t + out.dt
+            recs.append({"ms": secs * 1e3, "newton_iters": out.newton_iters,
+                         "converged": out.converged, "u_min": float(torch.min(u)),
+                         "dt": out.dt, "t": t})
+            if s in record:
+                row = record[s]
+                recs[-1]["min_spacing"] = float(min_spacing(
+                    curvilinear.mesh_geometry(q, cfg.grid)))
+                worst["u_min"] = max(worst["u_min"], abs(recs[-1]["u_min"] - row["u_min"]))
+                worst["dt"] = max(worst["dt"], abs(out.dt - row["dt"]) / row["dt"])
     ms = sorted(r["ms"] for r in recs[1:])
     compared = [s for s in record if s <= TOUCHDOWN_STEPS]
     emit({"phase": "mems_touchdown", "steps": TOUCHDOWN_STEPS, "t": t,
@@ -2320,7 +2435,7 @@ def large_scale_phase(dev) -> tuple:
     jvp_matvec.launches = 0
     pma_launches("before phase 29", expect=False)
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), fd_stencil_launches("large_scale_droplet"):
         line, secs = timed(lambda: ls.main(["2048", "2", "kernel", str(dev)]))
     launches = jvp_matvec.launches
     pma_l = pma_launches("large_scale_droplet")
@@ -3056,7 +3171,11 @@ def main() -> int:
     pma_rows = pma_kernel_phase(dev)
     pma_launches("phase 39", expect=False)
 
-    kstats, launches_main, prepared = droplet_phases(dev)
+    # -- 40. the stencils' kernel at the main paths' shapes ----------------------------
+    fd_rows = fd_stencil_rows(dev)
+
+    with fd_stencil_launches("phases 3-6"):
+        kstats, launches_main, prepared = droplet_phases(dev)
     pma_by_phase = {"prepare_step1024": pma_launches("phases 3-6")}
 
     # -- 7-10. the Swift-Hohenberg slice -------------------------------------
@@ -3216,6 +3335,19 @@ def main() -> int:
                                          for n in pma_numbers}}
                            if kname == "pma_smooth" else {}),
                         "at_2048": more})
+    # the stencils' kernel: d1_x at 1024^2 f64 (the droplet's residual), every row of
+    # phase 40 beside it; the main paths' launches by phase
+    fd_numbers = numbers + ("plain_device_ms", "err_vs_plain", "exact_vs_plain_checked")
+    fd_main = next(r for r in fd_rows
+                   if (r["name"], r["shape"], r["dtype"]) == ("d1_x", [N, N], "float64"))
+    kernels.append({"name": "fd_stencil", "route": "cuda",
+                    "source": "iterative_solvers_tpu_torch/ops/csrc/fd_stencil.cu",
+                    "replaces": None, "launches": sum(FD_BY_PHASE.values()),
+                    "launches_by_phase": dict(FD_BY_PHASE),
+                    **{k: fd_main[k] for k in fd_numbers}, "shape": fd_main["shape"],
+                    "dtype": fd_main["dtype"],
+                    "rows": {f"{r['name']} {r['shape'][0]}x{r['shape'][1]} {r['dtype']}":
+                             {k: r[k] for k in fd_numbers} for r in fd_rows}})
     denom = hbm_bytes_per_s() / 1e9
     kernels = [*with_shares(kernels, denom, copy_ceiling),
                *stream_entries(ladder_rows, ladder_launches, copy_ceiling)]

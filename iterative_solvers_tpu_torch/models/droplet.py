@@ -264,13 +264,14 @@ def jvp_field_stack(x, geom: MeshGeometry, cfg: DropletConfig, dt):
 
 
 def monitor_source(u, geom: MeshGeometry, grid: Grid2D, *,
-                   staged=curvilinear.unstaged):
-    """mon = |u_xx + u_yy|^2 with the reference's quirk BCs.  ``staged`` as
-    in ``ops.curvilinear.laplace``; it also stands where the fused PMA
-    kernel keeps ``u`` (the gradients it reads where they are used)."""
-    u_ksi, u_eta = curvilinear.grad_ksi_neumann(u, grid, quirk=True)
+                   staged=curvilinear.unstaged, fd=stencils):
+    """mon = |u_xx + u_yy|^2 with the reference's quirk BCs.  ``staged`` and
+    ``fd`` as in ``ops.curvilinear.laplace``; ``staged`` also stands where
+    the fused PMA kernel keeps ``u`` (the gradients it reads where they are
+    used)."""
+    u_ksi, u_eta = curvilinear.grad_ksi_neumann(u, grid, quirk=True, fd=fd)
     uxx, uyy = curvilinear.laplace(staged("u", u), u_ksi, u_eta, geom, grid,
-                                   staged=staged)
+                                   staged=staged, fd=fd)
     return torch.abs(uxx + uyy) ** 2
 
 

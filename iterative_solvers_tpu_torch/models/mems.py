@@ -21,9 +21,11 @@ solve, the finite-difference matvecs included);
 :func:`evolve` is a host loop over it and :func:`evolve_coupled` hands the
 coupled ``(u, Q)`` system to :class:`..solvers.bdf.BDF`, on a CUDA device
 with the right-hand side replayed as one CUDA graph
-(:func:`graphed_coupled_rhs`).  None of this path runs a hand-written
-kernel: the fields are 51 x 51, and every step is bound by the host's
-dispatch of small eager operations.
+(:func:`graphed_coupled_rhs`).  On a CUDA device each of the path's
+4th-order stencils (``ops/stencils``: 8 a residual evaluation, 6 for the
+geometry) is one launch of the hand-written ``fd_stencil`` kernel; the rest
+is eager, and at 51 x 51 every step is bound by the host's dispatch of
+small eager operations.
 """
 from __future__ import annotations
 

@@ -81,7 +81,7 @@ def unstaged(name: str, f):
 
 
 def mesh_geometry_dev(phi, grid: Grid2D, coords=None, *,
-                      staged=unstaged) -> MeshGeometry:
+                      staged=unstaged, fd=stencils) -> MeshGeometry:
     """Mesh geometry from the deviation potential ``Q = (x^2+y^2)/2 + phi``.
 
     Only the O(1) deviation is differenced (the identity part's derivatives
@@ -96,19 +96,23 @@ def mesh_geometry_dev(phi, grid: Grid2D, coords=None, *,
     ``staged(name, f)`` stands where the fused PMA kernel keeps ``name`` in
     shared memory (``dxp`` = d1_x(phi), ``jac``): the CPU rehearsal of its
     tiling (``ops.pma_substep.pma_substep_tiled_sim``) passes a window.
+
+    ``fd`` is the set of stencils it calls (``d1_x``, ``d1_y``, ``d2_x``,
+    ``d2_y``): ``ops.stencils``, or ``ops.stencils.PLAIN``, their plain
+    bodies on any device, for the plain version a kernel is held to.
     """
     dx, dy = grid.dx, grid.dy
 
-    px = stencils.d1_x(phi, dx)
+    px = fd.d1_x(phi, dx)
     px[:, 0] = 0.0
     px[:, -1] = 0.0
-    py = stencils.d1_y(phi, dy)
+    py = fd.d1_y(phi, dy)
     py[0, :] = 0.0
     py[-1, :] = 0.0
 
-    pxx = stencils.d2_x(phi, dx)
-    pyy = stencils.d2_y(phi, dy)
-    pxy = _zero_edges(stencils.d1_y(staged("dxp", stencils.d1_x(phi, dx)), dy))
+    pxx = fd.d2_x(phi, dx)
+    pyy = fd.d2_y(phi, dy)
+    pxy = _zero_edges(fd.d1_y(staged("dxp", fd.d1_x(phi, dx)), dy))
 
     if coords is None:
         xx_id = grid.xx_op(phi.dtype, phi.device)
@@ -133,14 +137,15 @@ def to_deviation(q, grid: Grid2D):
     return q - q_id
 
 
-def grad_ksi_neumann(v, grid: Grid2D, quirk: bool = False):
+def grad_ksi_neumann(v, grid: Grid2D, quirk: bool = False, *, fd=stencils):
     """Computational-space gradient with homogeneous Neumann edges zeroed.
 
     ``quirk=True`` reproduces the reference's slip: it zeroes ``v_ksi``
     (not ``v_eta``) on the bottom row, and ``v_eta`` only on the top row.
+    ``fd`` as in :func:`mesh_geometry_dev`.
     """
-    vx = stencils.d1_x(v, grid.dx)
-    vy = stencils.d1_y(v, grid.dy)
+    vx = fd.d1_x(v, grid.dx)
+    vy = fd.d1_y(v, grid.dy)
     vx[:, 0] = 0.0
     vx[:, -1] = 0.0
     if quirk:
@@ -226,14 +231,14 @@ def _flux_div_x(a, v, inv_h2, edge_dtype=None):
 
 
 def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
-            edge_dtype=None, *, staged=unstaged):
+            edge_dtype=None, *, staged=unstaged, fd=stencils):
     """Curvilinear Laplacian: returns ``(v_xx, v_yy)`` on the moving mesh.
 
     ``v_ksi``/``v_eta`` are the computational-space first derivatives of
     ``v`` that feed the cross terms.  ``edge_dtype`` widens the one-sided
-    boundary columns (see :func:`_flux_div_x`).  ``staged`` as in
-    :func:`mesh_geometry_dev` (``a11``, ``a22``, ``p`` = a12 v_eta, ``q`` =
-    a12 v_ksi).
+    boundary columns (see :func:`_flux_div_x`).  ``staged`` and ``fd`` as
+    in :func:`mesh_geometry_dev` (``a11``, ``a22``, ``p`` = a12 v_eta,
+    ``q`` = a12 v_ksi).
     """
     j = geom.jac
     a11 = staged("a11", (geom.xy * geom.xy + geom.yy * geom.yy) / j)
@@ -245,8 +250,8 @@ def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
 
     # cross terms: (A12 v_eta)_ksi with left/right edges zeroed, and
     # (A12 v_ksi)_eta with top/bottom edges zeroed
-    tx = _zero_edges(stencils.d1_x(staged("p", a12 * v_eta), grid.dx), rows=False)
-    ty = _zero_edges(stencils.d1_y(staged("q", a12 * v_ksi), grid.dy), cols=False)
+    tx = _zero_edges(fd.d1_x(staged("p", a12 * v_eta), grid.dx), rows=False)
+    ty = _zero_edges(fd.d1_y(staged("q", a12 * v_ksi), grid.dy), cols=False)
     return (v_xx + tx) / j, (v_yy + ty) / j
 
 

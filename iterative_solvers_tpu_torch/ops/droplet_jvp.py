@@ -14,8 +14,8 @@ coefficient fields the directional derivative is the linear chain
 with the coefficient stack of ``models.droplet.jvp_field_stack``.
 
 - :func:`jvp_apply_ref` — the plain PyTorch version, built on the tested
-  stencil and curvilinear primitives; used for CPU tensors and as the
-  kernel's oracle.
+  stencil and curvilinear primitives (the stencils' plain bodies, on the
+  card too); used for CPU tensors and as the kernel's oracle.
 - :func:`jvp_matvec` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch the hand-written kernel ``csrc/droplet_jvp.cu`` (one
   fused launch, intermediates staged in shared memory) or raise.
@@ -41,33 +41,35 @@ def _chain(v, stack, grid: Grid2D, staged=lambda name, f: f):
     """The linearised chain; ``staged(name, f)`` stands where the kernel
     keeps the intermediate ``name`` in shared memory (``v``, ``a11``,
     ``a22``, ``p``, ``q``, ``dp``, ``dA``, ``dB``).  The pointwise stack
-    fields are read where they are used."""
+    fields are read where they are used.  The stencils are their plain
+    bodies (``stencils.PLAIN``) on every device."""
     inv_j, xx, yy, xy, c0, c1, c2, c3 = stack
     dx, dy = grid.dx, grid.dy
+    fd = stencils.PLAIN
     v = staged("v", v)
     a11 = staged("a11", (xy * xy + yy * yy) * inv_j)
     a22 = staged("a22", (xy * xy + xx * xx) * inv_j)
     a12 = -(xy * (xx + yy)) * inv_j
 
-    p = staged("p", a12 * stencils.d1_y(v, dy))
-    q = staged("q", a12 * stencils.d1_x(v, dx))
+    p = staged("p", a12 * fd.d1_y(v, dy))
+    q = staged("q", a12 * fd.d1_x(v, dx))
     fx = _flux_div_x(a11, v, 1.0 / (dx * dx))
     fy = _flux_div_x(a22.T, v.T, 1.0 / (dy * dy)).T
-    tx = _zero_edges(stencils.d1_x(p, dx), rows=False)
-    ty = _zero_edges(stencils.d1_y(q, dy), cols=False)
+    tx = _zero_edges(fd.d1_x(p, dx), rows=False)
+    ty = _zero_edges(fd.d1_y(q, dy), cols=False)
     v_xx = (fx + tx) * inv_j
     v_yy = (fy + ty) * inv_j
 
     dp = staged("dp", -(v_xx + v_yy) + c0 * v)
-    dpk = _zero_edges(stencils.d1_x(dp, dx), rows=False)
-    dpe = _zero_edges(stencils.d1_y(dp, dy), cols=False)
+    dpk = _zero_edges(fd.d1_x(dp, dx), rows=False)
+    dpe = _zero_edges(fd.d1_y(dp, dy), cols=False)
     dpx = (yy * dpk - xy * dpe) * inv_j
     dpy = (-xy * dpk + xx * dpe) * inv_j
 
     dA = staged("dA", dpx * c1 + c2 * v)
     dB = staged("dB", dpy * c1 + c3 * v)
-    dF2 = (yy * stencils.d1_x(dA, dx) - xy * stencils.d1_y(dA, dy)
-           - xy * stencils.d1_x(dB, dx) + xx * stencils.d1_y(dB, dy)) * inv_j
+    dF2 = (yy * fd.d1_x(dA, dx) - xy * fd.d1_y(dA, dy)
+           - xy * fd.d1_x(dB, dx) + xx * fd.d1_y(dB, dy)) * inv_j
     return v - dF2
 
 

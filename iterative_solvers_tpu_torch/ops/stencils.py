@@ -10,13 +10,33 @@ are the reference's:
 - one-sided edge rows as below.
 
 Every function returns a fresh tensor and never writes into its input.
+
+:func:`d1_x`, :func:`d1_y`, :func:`d2_x` and :func:`d2_y` take one rule: on
+a CPU tensor they run their plain bodies (:func:`d1_x_plain`, ...), whose
+edge rows are a ``(rows, 5 or 6) x (5 or 6, 2)`` product; on a CUDA float32
+or float64 tensor each call is one launch of the hand-written kernel of
+``csrc/fd_stencil.cu`` (:func:`fd_stencil_kernel`), which reads any strides
+and leading axes and returns the plain body's layout, its interior and
+scale bit for bit and each edge point summed as one FMA chain from the
+first term; any other CUDA tensor raises.  With the tracing of
+``utils.trace`` on, ``stencil.calls`` counts every call of the four and
+``stencil.kernel`` those during which the kernel's launch count rose.
+:data:`PLAIN` holds the four plain bodies.  ``ops.curvilinear``'s geometry,
+gradient and Laplacian and ``models.droplet.monitor_source`` take the set of
+stencils they call (``fd``); the plain versions that kernels are held to
+pass :data:`PLAIN`, so they run the plain bodies on the card too.  The
+upwind and periodic operators below stay plain.
 """
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from types import SimpleNamespace
 
 import torch
+from torch.autograd import forward_ad
 
+from ..utils.trace import count
 
 # One-sided edge rows, applied to the first/last 5 (d1) or 6 (d2) entries.
 # d1: /(12h).  d2: /(12h^2); rows 0/-1 assume a known Neumann value at the
@@ -56,8 +76,8 @@ def _edge_rows(u, name: str):
     return strip @ c.T
 
 
-def d1_x(u, dx: float):
-    """4th-order first derivative along the last axis (ksi direction)."""
+def d1_x_plain(u, dx: float):
+    """4th-order first derivative along the last axis, the plain body."""
     s = 1.0 / (12.0 * dx)
     interior = u[..., :-4] - 8.0 * u[..., 1:-3] + 8.0 * u[..., 3:-1] - u[..., 4:]
     lo = _edge_rows(u, "d1_lo")
@@ -65,13 +85,13 @@ def d1_x(u, dx: float):
     return torch.cat([lo, interior, hi], dim=-1) * s
 
 
-def d1_y(u, dy: float):
-    """4th-order first derivative along the eta (row) axis."""
-    return d1_x(u.transpose(-1, -2), dy).transpose(-1, -2)
+def d1_y_plain(u, dy: float):
+    """4th-order first derivative along the rows, the plain body."""
+    return d1_x_plain(u.transpose(-1, -2), dy).transpose(-1, -2)
 
 
-def d2_x(u, dx: float):
-    """4th-order second derivative along the last axis (ksi direction)."""
+def d2_x_plain(u, dx: float):
+    """4th-order second derivative along the last axis, the plain body."""
     s = 1.0 / (12.0 * dx * dx)
     interior = (-u[..., :-4] + 16.0 * u[..., 1:-3] - 30.0 * u[..., 2:-2]
                 + 16.0 * u[..., 3:-1] - u[..., 4:])
@@ -80,9 +100,129 @@ def d2_x(u, dx: float):
     return torch.cat([lo, interior, hi], dim=-1) * s
 
 
+def d2_y_plain(u, dy: float):
+    """4th-order second derivative along the rows, the plain body."""
+    return d2_x_plain(u.transpose(-1, -2), dy).transpose(-1, -2)
+
+
+PLAIN = SimpleNamespace(d1_x=d1_x_plain, d1_y=d1_y_plain, d2_x=d2_x_plain, d2_y=d2_y_plain)
+
+
+def _stencil(u, order: int, axis: int, h: float, plain):
+    count("stencil.calls")
+    if u.device.type == "cpu":
+        return plain(u, h)
+    before = fd_stencil_kernel.launches
+    out = fd_stencil_kernel(u, order, axis, h)
+    count("stencil.kernel", int(fd_stencil_kernel.launches > before))
+    return out
+
+
+def d1_x(u, dx: float):
+    """4th-order first derivative along the last axis (ksi direction)."""
+    return _stencil(u, 1, -1, dx, d1_x_plain)
+
+
+def d1_y(u, dy: float):
+    """4th-order first derivative along the eta (row) axis."""
+    return _stencil(u, 1, -2, dy, d1_y_plain)
+
+
+def d2_x(u, dx: float):
+    """4th-order second derivative along the last axis (ksi direction)."""
+    return _stencil(u, 2, -1, dx, d2_x_plain)
+
+
 def d2_y(u, dy: float):
     """4th-order second derivative along the eta (row) axis."""
-    return d2_x(u.transpose(-1, -2), dy).transpose(-1, -2)
+    return _stencil(u, 2, -2, dy, d2_y_plain)
+
+
+# -- the kernel --------------------------------------------------------------
+
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+@lru_cache(maxsize=None)
+def _kernel(tag: str):
+    from ._build import c_function
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return c_function(f"fd_stencil_{tag}", [p, p, i, i, i, ll, ll, ll, ll, ctypes.c_double, p])
+
+
+def _launch(u, order: int, axis: int, h: float):
+    """One launch of the kernel on the CUDA field ``u``; raises on anything
+    it does not take."""
+    def name():
+        return f"the d{order}_{'x' if axis == -1 else 'y'} kernel"
+
+    if u.device.type != "cuda":
+        raise ValueError(f"{name()} runs on a CUDA device, got {u.device}")
+    tag = _DTYPES.get(u.dtype)
+    if tag is None:
+        raise TypeError(f"{name()} takes float32 or float64, got {u.dtype}")
+    if u.dim() < -axis:
+        raise ValueError(f"{name()} takes no {u.dim()}-D tensor")
+    v = u if u.dim() >= 2 else u.unsqueeze(0)
+    other = -2 if axis == -1 else -1
+    n, m = v.shape[axis], v.shape[other]
+    if n < 4 + order:
+        raise ValueError(f"{name()} needs {4 + order} points along its axis, got {n}")
+    out = torch.empty(v.shape[:-2] + (m, n), dtype=u.dtype, device=u.device)
+    if out.numel():
+        # the leading axes as one batch axis (a copy only where no stride walks them)
+        w = v.reshape(-1, *v.shape[-2:])
+        s = 1.0 / (12.0 * h) if order == 1 else 1.0 / (12.0 * h * h)
+        err = _kernel(tag)(w.data_ptr(), out.data_ptr(), order, n, m, w.stride(axis),
+                           w.stride(other), w.shape[0], w.stride(0), float(s),
+                           torch.cuda.current_stream(u.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name()} launch failed: CUDA error {err}")
+        fd_stencil_kernel.launches += 1
+    if axis == -2:
+        out = out.transpose(-1, -2)
+    return out if u.dim() >= 2 else out.squeeze(0)
+
+
+class _FdStencil(torch.autograd.Function):
+    """The launch with a forward-mode rule, for ``torch.func.jvp`` through a
+    residual on the card: the operator is linear, so the tangent's image is
+    the same launch on the tangent.  It has no reverse-mode rule (autograd
+    raises if a backward pass reaches it)."""
+
+    @staticmethod
+    def forward(u, order, axis, h):
+        return _launch(u, order, axis, h)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        # the tangent comes wrapped at the transform's level: the wrapper
+        # unwraps it on its way to the launch
+        return None if tangent is None else fd_stencil_kernel(tangent, *ctx.args)
+
+
+_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
+
+def fd_stencil_kernel(u, order: int, axis: int, h: float):
+    """``d{order}_x`` (``axis`` -1) or ``d{order}_y`` (``axis`` -2) of the
+    CUDA float32 or float64 tensor ``u`` with spacing ``h``: one launch of
+    ``csrc/fd_stencil.cu`` into a fresh tensor laid out as the plain body
+    lays it out (``*_x`` contiguous, ``*_y`` the transpose of a contiguous
+    ``(..., nx, ny)`` field).  Under autodiff the launch goes through
+    :class:`_FdStencil`.  ``fd_stencil_kernel.launches`` counts the
+    launches."""
+    if u.requires_grad or _wrapped(u) or forward_ad._current_level >= 0:
+        return _FdStencil.apply(u, order, axis, h)
+    return _launch(u, order, axis, h)
+
+
+fd_stencil_kernel.launches = 0
 
 
 def dxy(u, dx: float, dy: float):

@@ -11,10 +11,12 @@ takes by tiles (1e-6 relative: f32 rounding of a sum in another order).
 The fused loop's own code (``substep``, ``loop_pma``'s fused branch) runs
 here with the stage wrappers replaced by their eager counterparts.
 
-Card (``gpu``): every stage equals the eager chain on the card bit for bit.
-The eager stencils take their one-sided edge rows from a cuBLAS product,
-summed as one FMA chain at grids of 768 rows and more and in another order
-below; the kernels take the chain.  So at 1024^2 the kernels are held to
+Card (``gpu``): every stage equals the eager chain on the card bit for bit,
+its stencils the plain bodies (``stencils.PLAIN``: on the card ``d1_x`` and
+the others launch a kernel of their own).  The plain bodies take their
+one-sided edge rows from a cuBLAS product, summed as one FMA chain at grids
+of 768 rows and more and in another order below; the kernels take the
+chain.  So at 1024^2 the kernels are held to
 the eager chain as it is, and at every grid to the eager chain with its
 edge rows summed as that chain (emulated in float64 with a rounding to
 float32 after each step).  No JAX here, so the card's machine runs them:
@@ -57,9 +59,10 @@ def _params(**kw):
 
 
 def _eager_stages(base, s, u, grid):
-    """The eager chain's stages: src, J, the metric, the 4 passes, the floor."""
-    geom = cv.mesh_geometry_dev(base + s, grid)
-    src = dp.monitor_source(u, geom, grid)
+    """The eager chain's stages: src, J, the metric, the 4 passes, the floor;
+    its stencils the plain bodies, on the card too."""
+    geom = cv.mesh_geometry_dev(base + s, grid, fd=stencils.PLAIN)
+    src = dp.monitor_source(u, geom, grid, fd=stencils.PLAIN)
     j = geom.jac
     metric = ((geom.xy * geom.xy + geom.yy * geom.yy) / j,
               (geom.xy * geom.xy + geom.xx * geom.xx) / j,

@@ -261,6 +261,22 @@ def test_mems_step_spans_its_mesh_half_counts_its_residuals_and_its_dt_read(monk
     assert syncs(t) == syncs(t2) + 2
 
 
+def test_mems_step_counts_its_stencil_calls():
+    """At 51^2 on the CPU: 8 stencil calls a residual evaluation (the
+    biharmonic's two curvilinear Laplacians, 4 each), 8 for the step's
+    ``cn_term`` and 6 for the geometry; none launched the kernel."""
+    cfg = tm.MEMSConfig()
+    step = tm.make_step(cfg, NewtonKrylov(f_tol=6e-6, maxiter=40, inner_m=20, outer_k=8),
+                        device="cpu")
+    u, q = tm.initial_state(cfg, device="cpu")
+    with trace.tracing():
+        out = step(u, q)
+    (c,) = trace.take().counters.values()
+    assert out.converged and c["mems.residual_evals"] > out.newton_iters
+    assert c["stencil.calls"] == 8 * c["mems.residual_evals"] + 14
+    assert c.get("stencil.kernel", 0) == 0
+
+
 def _run(case, droplet):
     if case == "mems":
         out = _mems_steps(1)[0]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Tile and segment tuning of the port's five redesigned CUDA kernels on
-one GPU, and the times of the fused PMA sub-step's kernels:
+one GPU, and the times of the fused PMA sub-step's kernels and of the
+stencils' kernel:
 ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]
-[general] [pma]``.
+[general] [pma] [fd]``.
 
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
@@ -55,6 +56,14 @@ own under ``_build/tuning``.
   768 rows: below, the eager edge rows sum in another order, so there its
   error is reported, not checked), and the whole sub-step, fused against
   eager.
+- ``fd``: the stencils' kernel (``fd_stencil.cu``, ``ops/stencils.d1_x``,
+  ``d1_y``, ``d2_x``, ``d2_y``) at 51^2 f64 and 1024^2 f32 and f64 on a
+  seeded field: ms over batches of calls and graph ms, against its bytes
+  bound (the field read once, the result written once) and the plain body
+  on the card (its interior ops, the cuBLAS edge-row products, the cat and
+  the scale), with the largest gap to the plain body over its largest
+  value (the edge rows' summation order, 0 where cuBLAS sums as the
+  kernel does).
 
 One JSON line per measurement, with the card's name and power limit first.
 """
@@ -505,6 +514,39 @@ def tune_pma(dev):
                      (eager() - s).abs().max())})
 
 
+def tune_fd(dev):
+    import torch
+    from iterative_solvers_tpu_torch.ops import _build, stencils
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
+    ptxas_report(_build.CSRC / "fd_stencil.cu")
+    res = (ctypes.c_int * 5)()
+    fn = _build.c_function("fd_stencil_resources",
+                           [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for is_f64 in (0, 1):
+        for order in (1, 2):
+            if fn(is_f64, order, ctypes.cast(res, ctypes.c_void_p)):
+                raise SystemExit("fd_stencil_resources failed")
+            cs.emit({"phase": "tune_fd", "dtype": "f64" if is_f64 else "f32", "order": order,
+                     "resources": dict(zip(("registers", "shared_bytes", "spill_bytes",
+                                            "blocks_per_sm", "threads"), list(res)))})
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    for shape, dtype in (((51, 51), torch.float64), ((1024, 1024), torch.float32),
+                         ((1024, 1024), torch.float64)):
+        u = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev, dtype)
+        bound_ms = 2 * u.numel() * u.element_size() / 3.35e12 * 1e3
+        for name in ("d1_x", "d1_y", "d2_x", "d2_y"):
+            h = 0.1 if name.endswith("x") else 0.07
+            kernel = lambda: getattr(stencils, name)(u, h)  # noqa: E731
+            plain = lambda: getattr(stencils, f"{name}_plain")(u, h)  # noqa: E731
+            want = plain()
+            gap = float((kernel() - want).abs().max()) / float(want.abs().max())
+            cs.emit({"phase": "tune_fd", "shape": list(shape), "dtype": str(dtype)[6:],
+                     "kernel": name, "ms": cs.cuda_ms(kernel), "graph_ms": graph_ms(kernel),
+                     "bound_ms": bound_ms, "plain_ms": cs.cuda_ms(plain),
+                     "plain_graph_ms": graph_ms(plain), "rel_gap": gap})
+
+
 def main() -> int:
     import torch
 
@@ -514,7 +556,7 @@ def main() -> int:
     from iterative_solvers_tpu_torch.ops import _build
     from iterative_solvers_tpu_torch.utils.timing import nvidia_smi
 
-    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general", "pma"]
+    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general", "pma", "fd"]
     print(nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
@@ -530,6 +572,8 @@ def main() -> int:
         tune_general(dev)
     if "pma" in which:
         tune_pma(dev)
+    if "fd" in which:
+        tune_fd(dev)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 
