@@ -77,14 +77,11 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   and 999^2 f64, the biharmonic, a 9x14 grid; the flat form
                   on four operators; both SpMM layouts x 8 at 1024^2 and
                   2048^2 f32 and x 3 at 24^2 f64 on the cyclic SH container
-                  (the row-slab kernel: ``path`` ``slab``, timed in turns
-                  against the general (tiled) kernel, ``v1_*``), and the
+                  (the row-slab kernel: ``path`` ``slab``), and the
                   general kernel's rows (``path`` ``general``): x 8 at
                   1024^2 f32 on the far-shift clamped container (its vector
                   path) and the Poisson 999^2 operator x 8 f64 (its scalar
-                  path), each held against, and timed in turns with, the
-                  one-thread-a-point SpMM of the earlier design
-                  (``err_vs_v1``, exactly 0.0 or the run fails; ``v1_*``).
+                  path).
                   Every ``grid_dia_matvec`` row says which path of the tiled
                   kernel it took (``path``: ``vector`` or ``scalar``).  Same
                   gates; the library yardstick is one ``torch.sparse`` CSR
@@ -285,9 +282,9 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   for bit and with the plain body's strides, and against the
                   plain body as it is where its edge product has 768 rows
                   or more; with ms, graph ms, the plain body's ms and graph
-                  ms and the bytes bound.  The kernel's launches are zeroed
-                  before phases 3-6, 17, 22 and 29 and read after, with the
-                  program's tracing on: each stencil call of a phase is one
+                  ms and the bytes bound.  The kernel's launches are read
+                  around phases 3-6, 17, 22 and 29 (``ops._build.launch_count``),
+                  with the program's tracing on: each stencil call of a phase is one
                   launch, and each MEMS step of phase 22 makes 8 calls a
                   residual evaluation and 14 more (``stencil.calls``).
 
@@ -517,44 +514,13 @@ def check_bound(label: str, dev_ms: float, bound_ms: float, nbytes: float):
               f"{label}: device time {dev_ms} ms under 0.95 of its bound {bound_ms} ms")
 
 
-class Spans:
-    """CUDA-event spans around named functions of a module: while active,
-    each call of ``module.<name>`` records the stream time between its
-    start and end.  ``take()`` returns ``{name: [calls, ms]}`` and resets."""
+def spans(module, names):
+    """CUDA-event spans around the functions ``names`` of ``module``
+    (``portbench.spans.Spans``): ``take()`` returns ``{name: [calls, ms]}``
+    and resets."""
+    from portbench.spans import Spans
 
-    def __init__(self, module, names):
-        self.module = module
-        self.orig = {n: getattr(module, n) for n in names}
-        self.events = {n: [] for n in names}
-
-    def _wrap(self, name, fn):
-        import torch
-
-        def timed(*args, **kw):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn(*args, **kw)
-            b.record()
-            self.events[name].append((a, b))
-            return out
-        return timed
-
-    def __enter__(self):
-        for n, fn in self.orig.items():
-            setattr(self.module, n, self._wrap(n, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for n, fn in self.orig.items():
-            setattr(self.module, n, fn)
-
-    def take(self):
-        out = {n: [len(ev), sum(a.elapsed_time(b) for a, b in ev)]
-               for n, ev in self.events.items()}
-        for ev in self.events.values():
-            ev.clear()
-        return out
+    return Spans({n: (module, n) for n in names}, cuda=True)
 
 
 def prepare_large(n: int, dev):
@@ -732,15 +698,36 @@ def pma_kernel_phase(dev) -> dict:
     return rows
 
 
-def pma_launches(label: str, expect: bool = True) -> dict:
-    """The fused PMA sub-step's launches by wrapper since they were last
-    zeroed, and zeroes them.  ``expect``: ``label`` ran the fused sub-loop,
-    so there are launches, every sub-step whole (one source, right-hand
-    side, divide and accumulate, and at least one smoothing pass each)."""
-    from iterative_solvers_tpu_torch.ops import pma_substep as ps
+def launch_mark():
+    """A copy of the port's launch registry (``ops._build.LAUNCHES``):
+    ``launch_count(..., since=mark)`` counts the launches after it."""
+    import collections
+    from iterative_solvers_tpu_torch.ops import _build
 
-    got = {f.__name__: f.launches for f in ps.WRAPPERS}
-    ps.reset_launches()
+    return collections.Counter(_build.LAUNCHES)
+
+
+def by_dtype(kernel: str, mark) -> dict:
+    """``kernel``'s launches since ``mark`` by dtype."""
+    from iterative_solvers_tpu_torch.ops._build import launch_count
+
+    return {d: launch_count(kernel, dtype=d, since=mark) for d in ("f32", "f64")}
+
+
+PMA_MARK = None   # the launch registry at the last pma_launches call
+
+
+def pma_launches(label: str, expect: bool = True) -> dict:
+    """The fused PMA sub-step's launches by stage since the last call.
+    ``expect``: ``label`` ran the fused sub-loop, so there are launches,
+    every sub-step whole (one source, right-hand side, divide and
+    accumulate, and at least one smoothing pass each)."""
+    from iterative_solvers_tpu_torch.ops._build import launch_count
+
+    global PMA_MARK
+    got = {k: launch_count(f"pma_{k}", since=PMA_MARK)
+           for k in ("source", "smooth", "rhs", "divide", "accumulate")}
+    PMA_MARK = launch_mark()
     if expect:
         check(got["source"] > 0
               and got["rhs"] == got["divide"] == got["accumulate"] == got["source"]
@@ -761,6 +748,7 @@ def fd_stencil_rows(dev) -> list:
     and written once)."""
     import torch
     from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.utils.timing import graph_ms
     from tests.test_torch_fd_stencil import edge_rows_as_one_fma_chain
 
@@ -774,10 +762,10 @@ def fd_stencil_rows(dev) -> list:
             h = 0.1 if name.endswith("x") else 0.07
             kernel = lambda: getattr(stencils, name)(u, h)  # noqa: E731
             plain = lambda: getattr(stencils, f"{name}_plain")(u, h)  # noqa: E731
-            before = stencils.fd_stencil_kernel.launches
+            before = launch_count("fd_stencil")
             got = kernel()
             label = f"{name} {shape[0]}x{shape[1]} {dtype}"
-            check(stencils.fd_stencil_kernel.launches == before + 1,
+            check(launch_count("fd_stencil") == before + 1,
                   f"fd_stencil {label}: not one launch a call")
             as_is = plain()
             edge_rows = stencils._edge_rows
@@ -811,19 +799,19 @@ FD_BY_PHASE = {}       # the stencils' kernel launches by phase
 
 @contextlib.contextmanager
 def fd_stencil_launches(label: str, whole_step=None):
-    """Runs the block with the stencils' kernel launches zeroed and the
-    program's tracing on, then puts its launches in ``FD_BY_PHASE``: more
+    """Runs the block with the program's tracing on, then puts the stencils'
+    kernel launches it made in ``FD_BY_PHASE``: more
     than none, and one for each stencil call (``stencil.calls`` and
     ``stencil.kernel`` of every step and outside any).  ``whole_step(c)``:
     the calls each traced step must count, from its counters ``c``."""
-    from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.utils import trace
 
-    stencils.fd_stencil_kernel.launches = 0
+    before = launch_count("fd_stencil")
     trace.take()
     with trace.tracing():
         yield
-    launches = FD_BY_PHASE[label] = stencils.fd_stencil_kernel.launches
+    launches = FD_BY_PHASE[label] = launch_count("fd_stencil") - before
     counters = trace.take().counters
     calls, kernel = (sum(c.get(k, 0) for c in counters.values())
                      for k in ("stencil.calls", "stencil.kernel"))
@@ -947,6 +935,7 @@ def stencil_bench(dev, n: int = 4096, chain: int = 20):
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     h_b = float(np.sqrt(8.0))
     u0 = torch.tensor(np.random.default_rng(0).standard_normal((n, n)),
@@ -954,7 +943,7 @@ def stencil_bench(dev, n: int = 4096, chain: int = 20):
     ops = {"lap_periodic": lambda x: ps.lap_periodic_kernel(x, h_b),
            "sh_operator": lambda x: ps.sh_operator_kernel(x, h_b, 0.5)}
     torch.cuda.synchronize()
-    ps.reset_launches()
+    mark = launch_mark()
     out = {}
     for kname, op in ops.items():
         x = op(op(u0))  # warm-up: both buffers the chain alternates between exist
@@ -967,8 +956,7 @@ def stencil_bench(dev, n: int = 4096, chain: int = 20):
         b.synchronize()
         check(bool(torch.isfinite(x).all()), f"{kname} chain: non-finite output")
         out[kname] = a.elapsed_time(b) / chain
-    launches = {"lap_periodic": ps.lap_periodic_kernel.launches,
-                "sh_operator": ps.sh_operator_kernel.launches}
+    launches = {k: launch_count(k, since=mark) for k in ops}
     check(all(v == chain + 2 for v in launches.values()),
           f"stencil bench launches {launches}, expected {chain + 2} each")
     emit({"phase": "stencil_bench", "n": n, "chain": chain, "ms_per_launch": out,
@@ -996,7 +984,6 @@ def sh_parity(dev, n: int = 24):
     from scipy.optimize import newton_krylov
     from scipy.sparse.linalg import spsolve
     from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
 
     cfg = sh.SHConfig(d=40.0, n=n, k=0.2)
     L = sh_operator_scipy(n, cfg.h, cfg.r)
@@ -1009,7 +996,7 @@ def sh_parity(dev, n: int = 24):
                                    + L @ uo + cfg.g * uo * uo - uo ** 3) / 2
 
     want = newton_krylov(residual, uo, f_tol=6e-6)
-    ps.reset_launches()
+    mark = launch_mark()
     u_fd, res_fd = sh.make_cn_step(cfg, device=dev)(torch.tensor(u0))
     u_fast, res_fast = sh.make_cn_step(cfg, sh.fast_solver(cfg), device=dev)(
         torch.tensor(u0))
@@ -1019,7 +1006,7 @@ def sh_parity(dev, n: int = 24):
     check(res_fd.converged and res_fast.converged, "n=24 SH CN steps did not converge")
     check(err_fd <= 1e-6, f"n=24 SH CN step off scipy by {err_fd}")
     check(err_fast <= 2e-5, f"n=24 SH fast_solver step off the FD step by {err_fast}")
-    launches_cn = dict(ps.sh_operator_kernel.launches_by_dtype)
+    launches_cn = by_dtype("sh_operator", mark)
     check(launches_cn["f32"] > 0 and launches_cn["f64"] > 0,
           f"n=24 SH CN steps launched sh_operator {launches_cn}")
 
@@ -1052,7 +1039,6 @@ def sh2048(dev):
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
     from iterative_solvers_tpu_torch.solvers import newton
 
     n = SH_N
@@ -1060,8 +1046,10 @@ def sh2048(dev):
     solver = sh.fast_solver(cfg, f_tol=6e-6, inner_m=10, outer_k=5)
     u0 = torch.tensor(np.random.default_rng(1).standard_normal((n, n)), device=dev)
     torch.cuda.synchronize()
-    ps.reset_launches()
-    counts = ps.sh_operator_kernel.launches_by_dtype
+    mark = launch_mark()
+
+    def counts():
+        return by_dtype("sh_operator", mark)
 
     t0 = time.perf_counter()
     u, iters, f_norms = sh.evolve_cn(u0, 10, cfg, solver, device=dev)
@@ -1070,22 +1058,22 @@ def sh2048(dev):
     worst = float(np.max(f_norms))
     emit({"phase": "sh2048_chain", "n": n, "steps": 10, "seconds": chain_s,
           "newton_iters": iters.tolist(), "f_norms": f_norms.tolist(),
-          "worst_f_norm": worst, "launches_by_dtype": dict(counts)})
+          "worst_f_norm": worst, "launches_by_dtype": counts()})
     check(worst <= 6e-6, f"sh2048 chain diverged (worst f_norm {worst:.2e})")
     check(bool(torch.isfinite(u).all()), "sh2048 chain: state not finite")
 
     step = sh.make_cn_step(cfg, solver, device=dev)
     timed = []
-    with Spans(sh, ["apply_L", "cn_residual"]) as s_sh, \
-            Spans(newton, ["_lgmres_cycle"]) as s_nk:
+    with spans(sh, ["apply_L", "cn_residual"]) as s_sh, \
+            spans(newton, ["_lgmres_cycle"]) as s_nk:
         for k in range(4):  # one warm-up step, then 3 timed
-            before = dict(counts)
+            before = launch_mark()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             u, res = step(u)
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
-            launched = {d: counts[d] - before[d] for d in counts}
+            launched = by_dtype("sh_operator", before)
             rec = {"step": k, "warmup": k == 0, "step_ms": step_ms,
                    "newton_iters": res.iters, "f_norm": res.f_norm,
                    "converged": res.converged, "sh_operator_launches": launched,
@@ -1100,14 +1088,14 @@ def sh2048(dev):
     emit({"phase": "sh2048_profile", **device_profile(lambda: step(u))})
 
     torch.cuda.synchronize()
-    before = dict(counts)
+    before = launch_mark()
     t0 = time.perf_counter()
     u_si, res_si = sh.semi_implicit_step(u, u, cfg, device=dev)
     torch.cuda.synchronize()
     si_ms = (time.perf_counter() - t0) * 1e3
     check(res_si.converged, f"sh2048 semi-implicit GMRES: resnorm {res_si.resnorm}")
     check(bool(torch.isfinite(u_si).all()), "sh2048 semi-implicit: state not finite")
-    launched_si = {d: counts[d] - before[d] for d in counts}
+    launched_si = by_dtype("sh_operator", before)
     check(launched_si["f64"] > 0, "sh2048 semi-implicit step launched no sh_operator")
     emit({"phase": "sh2048_semi_implicit", "n": n, "ms": si_ms,
           "gmres_iters": res_si.iters, "resnorm": res_si.resnorm,
@@ -1119,8 +1107,8 @@ def sh2048(dev):
           "newton_iters": [r["newton_iters"] for r in timed],
           "f_norm": [r["f_norm"] for r in timed],
           "launches_per_step": [r["sh_operator_launches"] for r in timed],
-          "launches_by_dtype": dict(counts)})
-    return dict(counts)
+          "launches_by_dtype": counts()})
+    return counts()
 
 
 # -- the explicit-sparse layer ------------------------------------------------------
@@ -1188,16 +1176,14 @@ def _dtype_tag(dtype) -> str:
 
 
 def spmv_row(kname, label, a, shape, nrhs, kernel, plain, library, gate,
-             lib_view=lambda y: y, old=None, **extra):
+             lib_view=lambda y: y, **extra):
     """One kernel row: ``kernel()`` against ``plain()`` (max error over
     max|plain| within ``gate``), CUDA-event times of both and of the
     ``library()`` call (whose result ``lib_view`` brings into the kernel's
     layout for the comparison only), the kernel's time in a CUDA-graph
     replay (no host between launches), and the bytes / operations bound of
     the container ``a`` on ``nrhs`` right-hand sides: the coefficients whose
-    source lies in the grid, not the fields as stored (``stored_bytes``).
-    With ``old`` (an earlier kernel of the same function) it is held
-    against ``old()`` too and the two are timed in turns (``v1_*``)."""
+    source lies in the grid, not the fields as stored (``stored_bytes``)."""
     import torch
     from iterative_solvers_tpu_torch.utils.roofline import spmv_kernel_cost
     from iterative_solvers_tpu_torch.utils.timing import graph_ms
@@ -1222,16 +1208,10 @@ def spmv_row(kname, label, a, shape, nrhs, kernel, plain, library, gate,
     peak = F32_FLOP_PER_S if a.data.dtype == torch.float32 else F64_FLOP_PER_S
     bound_ms, bound_by = cost.bound_ms(hbm_bytes_per_s(), peak)
     reps = 15 if shape[0] * shape[1] * nrhs <= 2 ** 25 else 7
-    if old is not None:
-        err_v1 = float((got - old()).abs().max())
-        check(err_v1 <= gate * scale, f"{kname} {label}: off the earlier kernel by {err_v1}")
-        times = dict(err_vs_v1=err_v1, **in_turns(kernel, old))
-    else:
-        times = dict(ms=cuda_ms(kernel, reps=reps), device_ms=graph_ms(kernel))
     row = dict(name=kname, case=label, shape=list(shape), nrhs=nrhs,
                dtype=_dtype_tag(a.data.dtype), fields=nfields,
                max_abs_err=err, scale=scale, gate=gate, library_rel_err=lib_err,
-               **times, plain_ms=cuda_ms(plain, reps=reps),
+               ms=cuda_ms(kernel, reps=reps), device_ms=graph_ms(kernel), plain_ms=cuda_ms(plain, reps=reps),
                library_ms=cuda_ms(library, reps=reps), bound_ms=bound_ms,
                bound_by=bound_by, bytes=cost.bytes_moved,
                stored_bytes=(nfields + 2 * nrhs) * shape[0] * shape[1]
@@ -1349,23 +1329,16 @@ def spmv_kernel_rows(dev, operators):
         extra = dict(path=path, cyclic=cyclic, max_abs_dy=max(abs(dy) for dy, _ in a.shifts))
         if path == "general":
             extra["general_path"] = spmv.matvec_path(a, x3)
-        earlier = spmv._matmat_general if path == "slab" else spmv._matmat_general_v1
         rows["grid_dia_matmat", case] = spmv_row(
             "grid_dia_matmat", case, a, grid, nrhs, lambda: spmv.grid_dia_matmat(a, x3),
             lambda: spmv._matmat_plain(a, x3), lambda: lib_a @ xcols, gate(dtype),
-            lib_view=lambda y: y.t(), old=lambda: earlier(a, x3), **extra)
+            lib_view=lambda y: y.t(), **extra)
         rows["grid_dia_matmat_interleaved", case] = spmv_row(
             "grid_dia_matmat_interleaved", case, a, grid, nrhs,
             lambda: spmv.grid_dia_matmat_interleaved(a, xi),
             lambda: spmv._matmat_plain(a, x3).movedim(0, 1),
             lambda: lib_a @ xcols, gate(dtype),
-            lib_view=lambda y: y.t().reshape((nrhs,) + grid).movedim(0, 1),
-            old=lambda: earlier(a, xi, interleaved=True), **extra)
-        if path == "general":
-            for kname in ("grid_dia_matmat", "grid_dia_matmat_interleaved"):
-                err_v1 = rows[kname, case]["err_vs_v1"]
-                check(err_v1 == 0.0, f"{kname} {case}: the general kernel is off its earlier "
-                                     f"design by {err_v1}, not bit for bit")
+            lib_view=lambda y: y.t().reshape((nrhs,) + grid).movedim(0, 1), **extra)
         if case == f"sh_clamped_{n1}_x8_f32":
             keep["far_x8"] = a
         del lib_a
@@ -1399,6 +1372,7 @@ def spmv_bench(dev, operators, a32, chain: int = 20, nrhs: int = 8):
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch.ops import spmv
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.ops.sparse import DIA
 
     n = SP_N2
@@ -1413,16 +1387,17 @@ def spmv_bench(dev, operators, a32, chain: int = 20, nrhs: int = 8):
                (lambda v: spmv.grid_dia_matmat_interleaved(a32, v),
                 x3.movedim(0, 1).contiguous())}
     torch.cuda.synchronize()
-    spmv.reset_launches()
+    mark = launch_mark()
     out = {kname: chain_ms(kname, op, x0, chain) for kname, (op, x0) in ops.items()}
-    launches = {w.__name__: w.launches for w in spmv.WRAPPERS}
+    launches = {k: launch_count(k, since=mark) for k in ops}
     check(all(v == chain + 2 for v in launches.values()),
           f"spmv bench launches {launches}, expected {chain + 2} each")
-    by_path = {w.__name__: dict(w.launches_by_path)
-               for w in (spmv.grid_dia_matmat, spmv.grid_dia_matmat_interleaved)}
+    by_path = {k: {p: launch_count(k, path=p, since=mark) for p in ("slab", "general")}
+               for k in ("grid_dia_matmat", "grid_dia_matmat_interleaved")}
     check(all(v["slab"] == chain + 2 for v in by_path.values()),
           f"spmv bench SpMM launches by path {by_path}: the chains must take the slab kernel")
-    mv_by_path = dict(spmv.grid_dia_matvec.launches_by_path)
+    mv_by_path = {p: launch_count("grid_dia_matvec", path=p, since=mark)
+                  for p in ("vector", "scalar")}
     check(mv_by_path["vector"] == chain + 2,
           f"spmv bench SpMV launches by path {mv_by_path}: the chain must take the vector path")
     emit({"phase": "spmv_bench", "n": n, "chain": chain, "nrhs": nrhs,
@@ -1440,6 +1415,7 @@ def spmm_general_chain(dev, a_far, chain: int = 20, nrhs: int = 8):
     import numpy as np
     import torch
     from iterative_solvers_tpu_torch.ops import spmv
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     n = SP_N
     x3 = torch.tensor(np.random.default_rng(1).standard_normal((nrhs, n, n)),
@@ -1453,10 +1429,10 @@ def spmm_general_chain(dev, a_far, chain: int = 20, nrhs: int = 8):
               f"{kname} general chain: path {spmv.spmm_path(a_far, x0)}, "
               f"{spmv.matvec_path(a_far, x0)}")
     torch.cuda.synchronize()
-    spmv.reset_launches()
+    mark = launch_mark()
     out = {kname: chain_ms(kname, op, x0, chain) for kname, (op, x0) in ops.items()}
-    by_path = {w.__name__: dict(w.launches_by_path)
-               for w in (spmv.grid_dia_matmat, spmv.grid_dia_matmat_interleaved)}
+    by_path = {k: {p: launch_count(k, path=p, since=mark) for p in ("slab", "general")}
+               for k in ops}
     check(all(v == {"slab": 0, "general": chain + 2} for v in by_path.values()),
           f"general chain SpMM launches by path {by_path}: expected {chain + 2} general each")
     emit({"phase": "spmm_general_chain", "n": n, "chain": chain, "nrhs": nrhs,
@@ -1497,6 +1473,7 @@ def poisson999(dev, a_grid, a_flat):
     import torch
     from iterative_solvers_tpu_torch.models import poisson
     from iterative_solvers_tpu_torch.ops import spmv
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.solvers.cg import cg
 
     n, m = POISSON_N, POISSON_N - 1
@@ -1513,7 +1490,7 @@ def poisson999(dev, a_grid, a_flat):
         "dia_flat": lambda **kw: cg(lambda v: spmv.dia_flat_matvec(a_flat, (m, m), v), b,
                                     tol=1e-10, maxiter=kw.get("maxiter", 20 * n)),
     }
-    spmv.reset_launches()
+    mark = launch_mark()
     solves, fields = {}, {}
     for route, solve in routes.items():
         res, seconds = timed(solve)
@@ -1538,8 +1515,10 @@ def poisson999(dev, a_grid, a_flat):
                          "converged_flag": res.converged, "seconds": seconds,
                          "ms_per_iter": seconds * 1e3 / res.iters,
                          "err_vs_direct": err}
-    launches = {w.__name__: dict(w.launches_by_dtype) for w in spmv.WRAPPERS}
-    by_path = dict(spmv.grid_dia_matvec.launches_by_path)
+    launches = {k: by_dtype(k, mark) for k in ("grid_dia_matvec", "dia_flat_matvec",
+                                               "grid_dia_matmat", "grid_dia_matmat_interleaved")}
+    by_path = {p: launch_count("grid_dia_matvec", path=p, since=mark)
+               for p in ("vector", "scalar")}
     check(by_path == {"vector": 0, "scalar": solves["grid_dia"]["iters"] + 2},
           f"poisson999: grid_dia_matvec launches by path {by_path}: every one on the "
           "scalar path (999-column f64 rows)")
@@ -1698,6 +1677,7 @@ def droplet_phases(dev):
     from iterative_solvers_tpu_torch.models import droplet as dp
     from iterative_solvers_tpu_torch.ops import curvilinear
     from iterative_solvers_tpu_torch.core.grid import Grid2D
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_apply_ref, jvp_matvec
     from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
     from iterative_solvers_tpu_torch.utils.timing import graph_ms
@@ -1780,13 +1760,13 @@ def droplet_phases(dev):
     check(out_fd.converged, "91x61 FD step did not converge")
     check(err_u <= 1e-6, f"91x61 FD step: u off the golden step by {err_u}")
     check(err_q <= 1e-8, f"91x61 FD step: q off the golden step by {err_q}")
-    jvp_matvec.launches = 0
+    before = launch_count("droplet_jvp")
     t0 = time.perf_counter()
     out_k = dp.make_step(cfg_s, dt=dt_s, dtmesh=3e-9, pma_loops=5,
                          jvp_dtype="float32", jvp_kernel=True)(u_s, q_s, dt_s)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    launches_s = jvp_matvec.launches
+    launches_s = launch_count("droplet_jvp") - before
     err_k = float((out_k.u - out_fd.u).abs().max())
     check(out_k.converged, "91x61 kernel-mode step did not converge")
     check(abs(out_k.newton_iters - out_fd.newton_iters) <= 1,
@@ -1813,25 +1793,25 @@ def droplet_phases(dev):
     step = dp.make_step(cfg_l, dt=DT, dtmesh=dtmesh_l, pma_loops=20,
                         solver=solver, deviation_form=True,
                         jvp_dtype="float32", jvp_kernel=True)
-    spans = Spans(dp, ["jvp_matvec", "cn_residual", "jvp_field_stack", "loop_pma"])
+    step_spans = spans(dp, ["jvp_matvec", "cn_residual", "jvp_field_stack", "loop_pma"])
     summaries = {}
     u, phi = u_l, phi_l
-    jvp_matvec.launches = 0
-    with spans:
+    main0 = launch_count("droplet_jvp")
+    with step_spans:
         for dt in (DT, DT_MAIN):
             recs = []
             for k in range(4):  # one warm-up step, then 3 timed
-                before = jvp_matvec.launches
+                before = launch_count("droplet_jvp")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = step(u, phi, dt)
                 torch.cuda.synchronize()
                 step_ms = (time.perf_counter() - t0) * 1e3
-                split = spans.take()
+                split = step_spans.take()
                 rec = {"dt": dt, "step": k, "warmup": k == 0, "step_ms": step_ms,
                        "newton_iters": out.newton_iters, "f_norm": out.f_norm,
                        "converged": out.converged,
-                       "launches": jvp_matvec.launches - before,
+                       "launches": launch_count("droplet_jvp") - before,
                        "calls_ms": split,
                        "kernel_share": split["jvp_matvec"][1] / step_ms}
                 recs.append(rec)
@@ -1840,7 +1820,7 @@ def droplet_phases(dev):
                       f"{out.f_norm} after {out.newton_iters} Newton iterations")
                 u, phi = out.u, out.q
             summaries[dt] = recs[1:]
-    launches_main = jvp_matvec.launches
+    launches_main = launch_count("droplet_jvp") - main0
     prof = device_profile(lambda: step(u, phi, DT_MAIN))
     emit({"phase": "step1024_profile", "dt": DT_MAIN, **prof})
     geom = curvilinear.mesh_geometry_dev(phi, cfg_l.grid)
@@ -1932,7 +1912,7 @@ def droplet_driver_phases(dev, prepared) -> tuple:
     from iterative_solvers_tpu_torch.io import fixtures as fx
     from iterative_solvers_tpu_torch.models import droplet as dp
     from iterative_solvers_tpu_torch.ops import curvilinear
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov
 
     # -- 17. evolve at 1024^2, f64 and df64 outer residuals -----------------------
@@ -1957,13 +1937,13 @@ def droplet_driver_phases(dev, prepared) -> tuple:
               f"df64 residual off the f64 one at 91x61 by {pairs['91x61']['max_abs_diff']}")
         emit({"phase": "df64_residual", **pairs})
         for mode in ("f64", "df64"):
-            jvp_matvec.launches = 0
+            before = launch_count("droplet_jvp")
             with StepLog(dp) as log:
                 (u, phi, t, (iters, f_norms, dts)), secs = timed(lambda: dp.evolve(
                     cfg_l, u_l, phi_l, dt=DT_MAIN, nsteps=nsteps, dtmesh=dtmesh_l,
                     pma_loops=20, solver=solver, deviation_form=True,
                     jvp_dtype="float32", jvp_kernel=True, residual_mode=mode, device=dev))
-            n_launch = jvp_matvec.launches
+            n_launch = launch_count("droplet_jvp") - before
             launches += n_launch
             recs = log.records
             check(len(recs) == nsteps, f"evolve {mode}: {len(recs)} steps logged")
@@ -2197,8 +2177,7 @@ def cli_phase(dev, tmp: pathlib.Path) -> dict:
     from iterative_solvers_tpu_torch import cli
     from iterative_solvers_tpu_torch.io import checkpoint as ck
     from iterative_solvers_tpu_torch.io import fixtures as fx
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     cfg = fx.config_for(fx.parse_name(
         "initdrop_coal_1_91-61_100_0.005_0.01_0.1_0.15.txt"))
@@ -2215,8 +2194,7 @@ def cli_phase(dev, tmp: pathlib.Path) -> dict:
         "droplet": ["droplet", "--restart", str(start), "--steps", "2", "--fast",
                     "--pma-loops", "20", "--checkpoint", str(end)],
     }
-    jvp_matvec.launches = 0
-    ps.reset_launches()
+    mark = launch_mark()
     out = {}
     for name, argv in runs.items():
         buf = io.StringIO()
@@ -2224,8 +2202,7 @@ def cli_phase(dev, tmp: pathlib.Path) -> dict:
             rc, secs = timed(lambda: cli.main([*argv, "--device", str(dev)]))
         check(rc == 0, f"cli {name}: exit {rc}")
         out[name] = {**json.loads(buf.getvalue().strip().splitlines()[-1]), "seconds": secs}
-    launches = {"droplet_jvp": jvp_matvec.launches,
-                "sh_operator": ps.sh_operator_kernel.launches}
+    launches = {k: launch_count(k, since=mark) for k in ("droplet_jvp", "sh_operator")}
     emit({"phase": "cli", "runs": out, "launches": launches})
     for name, line in out.items():
         check(all(np.isfinite(v) for v in line.values() if not isinstance(v, bool)),
@@ -2268,6 +2245,7 @@ def dist_sh2048(dev, mesh) -> dict:
     from iterative_solvers_tpu_torch.dist.solvers import make_sharded_sh_step
     from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
     from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.utils.roofline import comm_stats
 
     n, steps = SH_N, 3
@@ -2289,10 +2267,10 @@ def dist_sh2048(dev, mesh) -> dict:
     for explicit in (True, False):
         step = make_sharded_sh_step(cfg, mesh, solver=solver, explicit_halos=explicit)
         comm.reset_counts()
-        ps.reset_launches()
+        before = launch_count("sh_operator")
         got, ms = run(step, halo.shard_field(u0, mesh))
         stats = comm_stats()
-        launched = ps.sh_operator_kernel.launches
+        launched = launch_count("sh_operator") - before
         launches["sh_operator"] += launched
         errs = [float((g[0] - r[0]).abs().max()) for g, r in zip(got, ref)]
         label = "explicit" if explicit else "implicit"
@@ -2329,10 +2307,10 @@ def dist_sh2048(dev, mesh) -> dict:
                                    plain_sh, "sh_operator")}
     rows = {}
     for name, (kernel, plain, kname) in ops.items():
-        ps.reset_launches()
+        before = launch_count(kname)
         got, want = kernel(u), plain(u)
         torch.cuda.synchronize()
-        launched = getattr(ps, f"{kname}_kernel").launches
+        launched = launch_count(kname) - before
         launches[kname] += launched
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         check(err <= 1e-5 * scale, f"{name}: max err {err} > 1e-5 x {scale}")
@@ -2430,14 +2408,14 @@ def large_scale_phase(dev) -> tuple:
     import io
 
     from iterative_solvers_tpu_torch.examples import large_scale_droplet as ls
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
-    jvp_matvec.launches = 0
+    before = launch_count("droplet_jvp")
     pma_launches("before phase 29", expect=False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), fd_stencil_launches("large_scale_droplet"):
         line, secs = timed(lambda: ls.main(["2048", "2", "kernel", str(dev)]))
-    launches = jvp_matvec.launches
+    launches = launch_count("droplet_jvp") - before
     pma_l = pma_launches("large_scale_droplet")
     emit({"phase": "large_scale_droplet", **line, "droplet_jvp_launches": launches,
           "pma_substep_launches": pma_l, "seconds": secs,
@@ -2460,7 +2438,7 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> tuple:
     import torch
     from iterative_solvers_tpu_torch.examples import droplet_longrun as lr
     from iterative_solvers_tpu_torch.io import checkpoint as ck
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     _, u, phi, _ = prepared
     # cut: 20 PMA sub-steps a step, not the driver's 400 at 1024^2; dt0 is
@@ -2470,7 +2448,7 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> tuple:
     for tag in ("full", "parts"):
         lr.save_chunk(tmp / f"longrun_{tag}_ckpt", cfg, u, phi, 0, 0.0, DT_MAIN)
     common = [f"{k}={v}" for k, v in opts.items()] + [f"out_dir={tmp}", f"device={dev}"]
-    jvp_matvec.launches = 0
+    before = launch_count("droplet_jvp")
     pma_launches("before phase 30", expect=False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2479,7 +2457,7 @@ def longrun_phase(dev, prepared, tmp: pathlib.Path) -> tuple:
         back, _ = ck.load_sharded(tmp / "longrun_parts_ckpt", {"u": dev, "q": dev},
                                   config=cfg)
         rest, secs_rest = timed(lambda: lr.main([str(N), "6", "tag=parts", *common]))
-    launches = jvp_matvec.launches
+    launches = launch_count("droplet_jvp") - before
     pma_l = pma_launches("droplet_longrun", expect=False)
     # droplet_longrun bounds the monitor (monitor_cap): a form the kernels do not
     # compute, so its sub-loop stays eager
@@ -2577,11 +2555,10 @@ def sh_full_phase(dev) -> dict:
     """Phase 31: ``examples/sh_full_experiment`` for SH_FULL_STEPS steps.
     Returns its sh_operator launches by dtype."""
     from iterative_solvers_tpu_torch.examples import sh_full_experiment as se
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
 
-    ps.reset_launches()
+    mark = launch_mark()
     (line, u, iters), secs, _ = quiet(lambda: se.experiment(SH_FULL_STEPS, dev))
-    launches = dict(ps.sh_operator_kernel.launches_by_dtype)
+    launches = by_dtype("sh_operator", mark)
     emit({"phase": "sh_full_experiment", **line, "cut": {"steps": [SH_FULL_STEPS, 2500]},
           "newton_iters_set": sorted(set(iters.tolist())), "sh_operator_launches": launches,
           "seconds": secs})
@@ -2703,14 +2680,14 @@ def flagship1024_phase(dev, tmp: pathlib.Path) -> int:
     inflation, FLAGSHIP_STEPS steps in chunks of FLAGSHIP_CHUNK with the
     sharded checkpoint splice.  Returns its droplet_jvp launches."""
     from iterative_solvers_tpu_torch.examples import droplet_flagship as fl
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     s = fl.setup(FLAGSHIP_N)
     (q, u, min_jac), secs_inf = timed(lambda: fl.inflate(s, FLAGSHIP_VSTEPS, dev))
-    jvp_matvec.launches = 0
+    before = launch_count("droplet_jvp")
     (recs, c, spliced), secs, _ = quiet(lambda: fl.evolve(
         s, u, q, FLAGSHIP_STEPS, FLAGSHIP_CHUNK, dev, pma_loops=FLAGSHIP_PMA, out_dir=tmp))
-    launches = jvp_matvec.launches
+    launches = launch_count("droplet_jvp") - before
     emit({"phase": "flagship_1024", "n": FLAGSHIP_N,
           "cut": {"vsteps": [FLAGSHIP_VSTEPS, 1000], "steps": [FLAGSHIP_STEPS, 1000],
                   "chunk": [FLAGSHIP_CHUNK, 25], "pma_loops": [FLAGSHIP_PMA, s.pma_loops]},
@@ -2735,7 +2712,6 @@ def native_phase(dev, tmp: pathlib.Path) -> dict:
     from scipy.sparse.linalg import spsolve
     from iterative_solvers_tpu_torch import native
     from iterative_solvers_tpu_torch.native import __main__ as driver
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
     from iterative_solvers_tpu_torch.ops import sparse
 
     n = NATIVE_N
@@ -2756,16 +2732,16 @@ def native_phase(dev, tmp: pathlib.Path) -> dict:
     nk_err = float(np.abs(xn - scipy_nk(residual, np.zeros(n), f_tol=1e-10)).max())
 
     u0 = rng.standard_normal(n * n)
-    ps.reset_launches()
+    mark = launch_mark()
     (ug, conv), sh_s = timed(lambda: native.sh_evolve(u0, 3, n=n, device=dev))
-    launches = dict(ps.sh_operator_kernel.launches_by_dtype)
+    launches = by_dtype("sh_operator", mark)
     uc, conv_c = native.sh_evolve(u0, 3, n=n, device="cpu")
     sh_err = float(np.abs(ug - uc).max())
     out = tmp / "sh_out.txt"
-    ps.reset_launches()
+    mark = launch_mark()
     rc, drv_s, log = quiet(lambda: driver.main([str(n), "40", "0.2", "1.0", "0.01", "1.0",
                                                 str(out), f"device={dev}"]))
-    for k, v in ps.sh_operator_kernel.launches_by_dtype.items():
+    for k, v in by_dtype("sh_operator", mark).items():
         launches[k] += v
     data = np.loadtxt(out)
     emit({"phase": "native", "n": n, "library": str(lib), "spmv_max_abs_err": spmv_err,
@@ -2816,7 +2792,6 @@ def surface_phase(dev) -> dict:
     import iterative_solvers_tpu_torch.models as m
     from iterative_solvers_tpu_torch import native
     from iterative_solvers_tpu_torch.core import Grid2D
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
     from iterative_solvers_tpu_torch.ops import sparse, stencils
     from iterative_solvers_tpu_torch.solvers import lgmres
 
@@ -2832,9 +2807,9 @@ def surface_phase(dev) -> dict:
     cfg = m.swift_hohenberg.SHConfig(n=SURFACE_N)
     u = torch.tensor(np.random.default_rng(0).standard_normal((SURFACE_N, SURFACE_N)),
                      dtype=torch.float32, device=dev)
-    ps.reset_launches()
+    mark = launch_mark()
     got = m.swift_hohenberg.apply_L(u, cfg)
-    launches = dict(ps.sh_operator_kernel.launches_by_dtype)
+    launches = by_dtype("sh_operator", mark)
     want = stencils.sh_linear_operator(u, cfg.h, cfg.r)
     sh_err = float((got - want).abs().max())
     sh_scale = float(want.abs().max())
@@ -3009,7 +2984,7 @@ def stream_main_path(dev) -> dict:
     ``grid_copy`` chained ``STREAM_CHAIN`` times on its own output (which
     stays the field, bit for bit)."""
     import torch
-    from iterative_solvers_tpu_torch.ops import stream_ladder as sl
+    from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.tools import grid_experiment as tge
     from iterative_solvers_tpu_torch.tools import pipeline_experiment as tpe
     from iterative_solvers_tpu_torch.tools import stream_ladder as tsl
@@ -3021,7 +2996,7 @@ def stream_main_path(dev) -> dict:
            for c in STREAM_PIPELINES]
     ops += [(f"grid_copy bm={bm}", tge.grid_copy(n, bm)) for bm in STREAM_GRID_BM]
     torch.cuda.synchronize()
-    sl.reset_launches()
+    mark = launch_mark()
     ladder = tsl.ladder(n, reps=3)
     chains = {}
     for label, op in ops:
@@ -3035,7 +3010,7 @@ def stream_main_path(dev) -> dict:
         b.synchronize()
         check(torch.equal(x, u), f"{label}: the chained copy is not the field")
         chains[label] = a.elapsed_time(b) / STREAM_CHAIN
-    launches = {k: getattr(sl, k).launches for k in STREAM_REPLACES}
+    launches = {k: launch_count(k, since=mark) for k in STREAM_REPLACES}
     check(all(v > 0 for v in launches.values()), f"stream main path launches {launches}")
     return {"ladder": ladder, "chain_ms": chains, "launches": launches}
 
@@ -3240,24 +3215,21 @@ def main() -> int:
                 "nrhs": row["nrhs"], "dtype": row["dtype"], **more}
 
     def spmm_entry(kname, pallas_call):
-        """The slab kernel at the chain's shape, in turns against the general
-        one; the same at 1024^2; and the general kernel's two rows, the
-        far-shift container (its vector path) and the 999^2 f64 Poisson
-        operator (its scalar path), each in turns against its earlier
-        design.  Launches: the kernel bench's chain (slab) and the general
-        kernel's chain."""
-        more = {k: sp_rows[kname, spmm_case][k] for k in versus + ("path",)}
+        """The slab kernel at the chain's shape; the same at 1024^2; and the
+        general kernel's two rows, the far-shift container (its vector path)
+        and the 999^2 f64 Poisson operator (its scalar path).  Launches: the
+        kernel bench's chain (slab) and the general kernel's chain."""
         small = sp_rows[kname, f"sh_cyclic_{SP_N}_x8_f32"]
         general = {label: {k: sp_rows[kname, case][k]
-                           for k in numbers + versus + ("path", "general_path", "err_vs_v1")}
+                           for k in numbers + ("path", "general_path")}
                    for label, case in (("far_shift_1024", f"sh_clamped_{SP_N}_x8_f32"),
                                        ("odd_width_999", f"poisson_{POISSON_N - 1}_x8_f64"))}
         return spmv_entry(kname, spmm_case,
                           sp_bench_launches[kname] + sp_general_launches[kname], pallas_call,
-                          **more,
+                          path=sp_rows[kname, spmm_case]["path"],
                           launches_by_path={"slab": sp_bench_by_path[kname]["slab"],
                                             "general": sp_general_launches[kname]},
-                          at_1024={k: small[k] for k in numbers + versus + ("path",)},
+                          at_1024={k: small[k] for k in numbers + ("path",)},
                           **general)
 
     def total(kname):

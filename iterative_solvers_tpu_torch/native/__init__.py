@@ -46,7 +46,7 @@ def ensure_built(force: bool = False) -> pathlib.Path:
     return its path.  Raises where it cannot be built (no CUDA, no
     ``nvcc``): there is no fallback.  ``force`` rebuilds from scratch."""
     if force:
-        _build.load_library.cache_clear()
+        _build.clear()
         shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     return pathlib.Path(_build.load_library()._name)
 

@@ -81,12 +81,12 @@
 // 999 f64, unaligned stacks), and every whole term within that reach reads
 // it there, a warp 32 neighbouring words of a row: no bank conflict at any
 // shift.  Far and partial terms read x through L1.  Each point sums its
-// live terms in table order, one FMA a term a right-hand side, as the
-// one-thread-a-point kernel of the earlier design (grid_dia_matmat_v1,
-// kept for timing in turns) does with its contracted `acc += d * x`: the
-// two are equal bit for bit.  What held that kernel at a third of its bound
-// on the far-shift container: every point walked all 33 terms and tested
-// each source, 20 of them on average outside the grid.  Measured on the
+// live terms in table order, one FMA a term a right-hand side, as a host
+// loop with std::fma does (tools/emulate_dia_spmv.py): the two are equal
+// bit for bit.  What held the one-thread-a-point kernel of the earlier
+// design at a third of its bound on the far-shift container: every point
+// walked all 33 terms and tested each source, 20 of them on average
+// outside the grid.  Measured on the
 // way and dropped, each slower on the far-shift container: 16-byte slots
 // with x read through L1 as pairs of aligned vectors; the coefficients of
 // the list staged in shared memory too; the next group's coefficient
@@ -125,8 +125,6 @@
 
 namespace {
 
-constexpr int kBX = 32;          // block columns (one warp along a row)
-constexpr int kBY = 8;           // block rows
 constexpr int kFlatThreads = 256;
 constexpr int kRhsTile = 8;      // right-hand sides held in registers
 constexpr unsigned kMaxGridY = 65535;
@@ -161,74 +159,6 @@ __global__ void dia_flat_matvec_kernel(const T* __restrict__ data,
     if (j >= 0 && j < n) acc += __ldg(data + k * n + i) * __ldg(x + j);
   }
   y[i] = acc;
-}
-
-// The general SpMM of the earlier design (grid_dia_matmat_v1), kept for
-// timing in turns: one thread a point, every term of the table tested at
-// every point.  One output point for every right-hand side; element
-// (j, r, c) of x and y lies at j * rhs_stride + r * row_stride + c.
-template <class T, bool CYCLIC>
-__device__ __forceinline__ void grid_dia_matmat_v1_point(
-    const T* __restrict__ data, const int* __restrict__ terms, int nterms,
-    const T* __restrict__ x, T* __restrict__ y, int nrhs, int ny, int nx,
-    size_t rhs_stride, size_t row_stride) {
-  const int c = blockIdx.x * kBX + threadIdx.x;
-  const int r = blockIdx.y * kBY + threadIdx.y;
-  if (r >= ny || c >= nx) return;
-  const size_t field = static_cast<size_t>(ny) * nx;
-  const size_t here = static_cast<size_t>(r) * nx + c;
-  const size_t out = static_cast<size_t>(r) * row_stride + c;
-  for (int j0 = 0; j0 < nrhs; j0 += kRhsTile) {
-    const int nj = nrhs - j0 < kRhsTile ? nrhs - j0 : kRhsTile;
-    T acc[kRhsTile];
-#pragma unroll
-    for (int j = 0; j < kRhsTile; ++j) acc[j] = T(0);
-    for (int t = 0; t < nterms; ++t) {
-      const int k = __ldg(terms + 3 * t);
-      const int dy = __ldg(terms + 3 * t + 1);
-      const int dx = __ldg(terms + 3 * t + 2);
-      int rr, cc;
-      if (!(shifted<CYCLIC>(r, dy, ny, rr) && shifted<CYCLIC>(c, dx, nx, cc))) continue;
-      const T d = __ldg(data + static_cast<size_t>(k) * field + here);
-      const T* src = x + static_cast<size_t>(j0) * rhs_stride
-                     + static_cast<size_t>(rr) * row_stride + cc;
-#pragma unroll
-      for (int j = 0; j < kRhsTile; ++j) {
-        if (j < nj) acc[j] += d * __ldg(src + static_cast<size_t>(j) * rhs_stride);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kRhsTile; ++j) {
-      if (j < nj) y[out + static_cast<size_t>(j0 + j) * rhs_stride] = acc[j];
-    }
-  }
-}
-
-// x, y: (nrhs, ny, nx)
-template <class T, bool CYCLIC>
-__global__ void grid_dia_matmat_v1_kernel(const T* __restrict__ data,
-                                          const int* __restrict__ terms, int nterms,
-                                          const T* __restrict__ x, T* __restrict__ y,
-                                          int nrhs, int ny, int nx) {
-  grid_dia_matmat_v1_point<T, CYCLIC>(data, terms, nterms, x, y, nrhs, ny, nx,
-                                      static_cast<size_t>(ny) * nx,
-                                      static_cast<size_t>(nx));
-}
-
-// x, y: (ny, nrhs, nx)
-template <class T, bool CYCLIC>
-__global__ void grid_dia_matmat_v1_interleaved_kernel(
-    const T* __restrict__ data, const int* __restrict__ terms, int nterms,
-    const T* __restrict__ x, T* __restrict__ y, int nrhs, int ny, int nx) {
-  grid_dia_matmat_v1_point<T, CYCLIC>(data, terms, nterms, x, y, nrhs, ny, nx,
-                                      static_cast<size_t>(nx),
-                                      static_cast<size_t>(nrhs) * nx);
-}
-
-bool grid_launch_shape(int ny, int nx, dim3* grid) {
-  if (ny < 1 || nx < 1) return false;
-  *grid = dim3((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
-  return grid->y <= kMaxGridY;
 }
 
 // ---- per-block live-term lists: the tiled SpMV and the tiled SpMM ----------------
@@ -546,35 +476,6 @@ int launch_flat_matvec(const T* data, const int* terms, int nterms, const T* x,
   dia_flat_matvec_kernel<T><<<static_cast<unsigned>(blocks), kFlatThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       data, terms, nterms, x, y, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch the general SpMM of the earlier design (grid_dia_matmat_v1).
-template <class T>
-int launch_grid_matmat_v1(const T* data, const int* terms, int nterms, int cyclic,
-                          int interleaved, const T* x, T* y, int nrhs, int ny, int nx,
-                          void* stream) {
-  dim3 grid;
-  if (nterms < 0 || nrhs < 1 || !grid_launch_shape(ny, nx, &grid)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 block(kBX, kBY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (interleaved) {
-    if (cyclic) {
-      grid_dia_matmat_v1_interleaved_kernel<T, true><<<grid, block, 0, s>>>(
-          data, terms, nterms, x, y, nrhs, ny, nx);
-    } else {
-      grid_dia_matmat_v1_interleaved_kernel<T, false><<<grid, block, 0, s>>>(
-          data, terms, nterms, x, y, nrhs, ny, nx);
-    }
-  } else if (cyclic) {
-    grid_dia_matmat_v1_kernel<T, true><<<grid, block, 0, s>>>(
-        data, terms, nterms, x, y, nrhs, ny, nx);
-  } else {
-    grid_dia_matmat_v1_kernel<T, false><<<grid, block, 0, s>>>(
-        data, terms, nterms, x, y, nrhs, ny, nx);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1214,9 +1115,7 @@ int slab_resources(K kernel, int threads, size_t bytes, int* r) {
 // distinct, of the layout named above.  Cyclic shifts lie in [0, ny) x
 // [0, nx).  `vec` takes the tiled kernels' vector path (nx a multiple of a
 // 16-byte vector, data, x and y 16-byte aligned: cudaErrorInvalidValue
-// otherwise) or, 0, the scalar one; grid_dia_matmat_v1 is the general SpMM
-// of the earlier design in either layout (interleaved 0 or 1).  Each
-// launches on `stream`, does not synchronise, and returns the cudaError_t
+// otherwise) or, 0, the scalar one.  Each launches on `stream`, does not synchronise, and returns the cudaError_t
 // of the launch (0 on success).
 #define DIA_SPMV_EXPORTS(T, tag)                                                        \
   extern "C" int grid_dia_matvec_##tag(const T* data, const int* terms, int nterms,     \
@@ -1239,12 +1138,6 @@ int slab_resources(K kernel, int threads, size_t bytes, int* r) {
       int nx, int cyclic, int vec, void* stream) {                                      \
     return launch_grid_matmat(data, terms, nterms, cyclic, vec, 1, x, y, nrhs, ny, nx,  \
                               stream);                                                  \
-  }                                                                                     \
-  extern "C" int grid_dia_matmat_v1_##tag(const T* data, const int* terms, int nterms,  \
-                                          const T* x, T* y, int nrhs, int ny, int nx,   \
-                                          int cyclic, int interleaved, void* stream) {  \
-    return launch_grid_matmat_v1(data, terms, nterms, cyclic, interleaved, x, y, nrhs,  \
-                                 ny, nx, stream);                                       \
   }
 
 DIA_SPMV_EXPORTS(float, f32)

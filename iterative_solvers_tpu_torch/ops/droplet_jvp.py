@@ -18,8 +18,8 @@ with the coefficient stack of ``models.droplet.jvp_field_stack``.
   card too); used for CPU tensors and as the kernel's oracle.
 - :func:`jvp_matvec` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch the hand-written kernel ``csrc/droplet_jvp.cu`` (one
-  fused launch, intermediates staged in shared memory) or raise.
-  ``jvp_matvec.launches`` counts the kernel launches.
+  fused launch, intermediates staged in shared memory, counted in
+  ``ops._build.LAUNCHES`` under ``"droplet_jvp"``) or raise.
 - :func:`jvp_apply_tiled_sim` — a CPU rehearsal of the kernel's tiling:
   the chain computed tile by tile from staged windows that hold nothing
   outside the regions the kernel stages; :func:`edge_strip_points` rehearses
@@ -28,12 +28,12 @@ with the coefficient stack of ``models.droplet.jvp_field_stack``.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
 from ..core.grid import Grid2D
 from . import stencils
+from ._build import F32, check, launch
 from .curvilinear import _flux_div_x, _zero_edges
 
 
@@ -181,34 +181,8 @@ def jvp_apply_tiled_sim(v, stack, grid: Grid2D, tile, offset=(0, 0)):
     return out
 
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
-
-
-@lru_cache(maxsize=None)
-def _kernel():
-    from ._build import c_function
-
-    return c_function("droplet_jvp_f32", _ARGS)
-
-
-def _check(v, stack, grid: Grid2D):
-    """Raise on anything the kernel does not take."""
-    shape = grid.shape
-    if v.dtype != torch.float32 or stack.dtype != torch.float32:
-        raise TypeError(f"droplet_jvp kernel takes float32, got {v.dtype} "
-                        f"and {stack.dtype}")
-    if tuple(v.shape) != shape or tuple(stack.shape) != (8, *shape):
-        raise ValueError(f"droplet_jvp kernel: v {tuple(v.shape)}, stack "
-                         f"{tuple(stack.shape)} for grid {shape}")
-    if min(shape) < 8:
-        raise ValueError(f"droplet_jvp kernel needs ny, nx >= 8, got {shape}")
-    if stack.device != v.device:
-        raise ValueError("v and stack must be on the same device")
-    if not (v.is_contiguous() and stack.is_contiguous()):
-        raise ValueError("droplet_jvp kernel takes contiguous v and stack")
-    if v.requires_grad or stack.requires_grad:
-        raise RuntimeError("the droplet_jvp kernel has no derivative rule")
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGS = {"droplet_jvp": [_P, _P, _P, _I, _I, _D, _D, _P]}
 
 
 def jvp_matvec(v, stack, grid: Grid2D):
@@ -221,15 +195,14 @@ def jvp_matvec(v, stack, grid: Grid2D):
     """
     if v.device.type == "cpu":
         return jvp_apply_ref(v, stack, grid)
-    _check(v, stack, grid)
+    shape = grid.shape
+    if tuple(v.shape) != shape or tuple(stack.shape) != (8, *shape):
+        raise ValueError(f"droplet_jvp kernel: v {tuple(v.shape)}, stack "
+                         f"{tuple(stack.shape)} for grid {shape}")
+    if min(shape) < 8:
+        raise ValueError(f"droplet_jvp kernel needs ny, nx >= 8, got {shape}")
+    check("droplet_jvp", v, stack, dtypes=F32)
     out = torch.empty_like(v)
-    err = _kernel()(v.data_ptr(), stack.data_ptr(), out.data_ptr(), grid.ny,
-                    grid.nx, grid.dx, grid.dy,
-                    torch.cuda.current_stream(v.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"droplet_jvp kernel launch failed: CUDA error {err}")
-    jvp_matvec.launches += 1
+    launch(("droplet_jvp", "f32", None), "droplet_jvp", _ARGS, v.device,
+           v.data_ptr(), stack.data_ptr(), out.data_ptr(), grid.ny, grid.nx, grid.dx, grid.dy)
     return out
-
-
-jvp_matvec.launches = 0

@@ -7,9 +7,9 @@
 On a CPU tensor each runs its plain version (``ops.stencils.lap_periodic``,
 ``ops.stencils.sh_linear_operator``); on a CUDA tensor it launches the
 hand-written kernel of ``csrc/periodic_stencil.cu`` (f32 or f64, any 2-D
-contiguous shape with ``ny, nx >= 3`` resp. ``>= 4``) or raises.  Each
-wrapper's ``.launches`` counts its kernel launches, and
-``.launches_by_dtype`` splits the count into ``"f32"`` and ``"f64"``.
+contiguous shape with ``ny, nx >= 3`` resp. ``>= 4``) or raises; the
+launches are counted in ``ops._build.LAUNCHES`` under ``"lap_periodic"``
+and ``"sh_operator"`` (with its path).
 
 ``sh_operator`` has two hand-written kernels, chosen by the field's shape
 and address alone (:func:`sh_operator_path`), never by a failed launch:
@@ -28,25 +28,16 @@ none: autodiff through a CUDA call raises.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
-from torch.autograd import forward_ad
 
 from . import stencils
+from ._build import check, launch
 
-_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-
-
-@lru_cache(maxsize=None)
-def _kernel(name: str):
-    from ._build import c_function
-
-    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_double]
-    if name.startswith("sh_operator"):
-        args.append(ctypes.c_double)
-    return c_function(name, args + [ctypes.c_void_p])
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGS = {"lap_periodic": [_P, _P, _I, _I, _D, _P],
+         "sh_operator": [_P, _P, _I, _I, _D, _D, _P],
+         "sh_operator_v1": [_P, _P, _I, _I, _D, _D, _P]}
 
 
 def sh_operator_path(u) -> str:
@@ -56,47 +47,23 @@ def sh_operator_path(u) -> str:
     return "strip" if u.shape[-1] % vector == 0 and u.data_ptr() % 16 == 0 else "tile"
 
 
-def _check_no_autodiff(u, name: str):
-    """Raise if ``u`` carries a tangent or a gradient: the kernels have no
-    derivative rule (neither had the TPU kernels), so ``torch.func.jvp`` or
-    autograd through a CUDA call would silently lose the derivative."""
-    if (torch._C._functorch.is_functorch_wrapped_tensor(u)
-            or u.requires_grad or forward_ad.unpack_dual(u).tangent is not None):
-        raise RuntimeError(
-            f"the {name} kernel has no derivative rule: use finite-difference "
-            "JVPs (jvp_mode='fd') or an analytic matvec_factory on the GPU")
-
-
-def _launch(wrapper, name: str, min_n: int, u, *scalars, c_name=None):
-    """Check ``u`` for the kernel ``name``, allocate the output, launch on
-    the current stream and count the launch on ``wrapper`` if there is one;
-    raise on anything the kernel does not take.  The C function is ``name``
-    + dtype tag, or ``c_name(u)`` + dtype tag where the kernel is chosen by
-    the checked field's shape and address."""
-    if u.device.type != "cuda":
-        raise ValueError(f"{name} kernel runs on a CUDA device, got {u.device}")
-    _check_no_autodiff(u, name)
-    if u.dtype not in _DTYPES:
-        raise TypeError(f"{name} kernel takes float32 or float64, got {u.dtype}")
+def _launch(kernel: str, min_n: int, u, *scalars, path=None):
+    """Check ``u`` for ``kernel``, allocate the output and launch: the C
+    function ``kernel``, or for ``sh_operator`` that of ``path`` (by
+    default the one :func:`sh_operator_path` names)."""
     if u.dim() != 2:
-        raise ValueError(f"{name} kernel takes a 2-D field, got shape {tuple(u.shape)}")
+        raise ValueError(f"{kernel} kernel takes a 2-D field, got shape {tuple(u.shape)}")
     ny, nx = u.shape
     if ny < min_n or nx < min_n:
-        raise ValueError(f"{name} kernel needs ny, nx >= {min_n}, got {(ny, nx)}")
-    if not u.is_contiguous():
-        raise ValueError(f"{name} kernel takes a contiguous field")
+        raise ValueError(f"{kernel} kernel needs ny, nx >= {min_n}, got {(ny, nx)}")
+    tag = check(kernel, u)
+    c_base = kernel
+    if kernel == "sh_operator":
+        path = path or sh_operator_path(u)
+        c_base = "sh_operator" if path == "strip" else "sh_operator_v1"
     out = torch.empty_like(u)
-    tag = _DTYPES[u.dtype]
-    if c_name is not None:
-        name = c_name(u)
-    err = _kernel(f"{name}_{tag}")(
-        u.data_ptr(), out.data_ptr(), ny, nx, *scalars,
-        torch.cuda.current_stream(u.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if wrapper is not None:
-        wrapper.launches += 1
-        wrapper.launches_by_dtype[tag] += 1
+    launch((kernel, tag, path), c_base, _ARGS, u.device, u.data_ptr(), out.data_ptr(), ny, nx,
+           *scalars)
     return out
 
 
@@ -104,12 +71,7 @@ def lap_periodic_kernel(u, h: float):
     """Periodic 5-point Laplacian of the ``(ny, nx)`` field ``u``."""
     if u.device.type == "cpu":
         return stencils.lap_periodic(u, h)
-    return _launch(lap_periodic_kernel, "lap_periodic", 3, u, 1.0 / (h * h))
-
-
-def _sh_c_name(u) -> str:
-    """The C function of the kernel that takes the field: strip or tiled."""
-    return "sh_operator" if sh_operator_path(u) == "strip" else "sh_operator_v1"
+    return _launch("lap_periodic", 3, u, 1.0 / (h * h))
 
 
 def sh_operator_kernel(u, h: float, r: float):
@@ -118,15 +80,14 @@ def sh_operator_kernel(u, h: float, r: float):
     :func:`sh_operator_path` says ``"strip"``, else through the tiled one."""
     if u.device.type == "cpu":
         return stencils.sh_linear_operator(u, h, r)
-    return _launch(sh_operator_kernel, "sh_operator", 4, u, 1.0 / (h * h), r - 1.0,
-                   c_name=_sh_c_name)
+    return _launch("sh_operator", 4, u, 1.0 / (h * h), r - 1.0)
 
 
 def _sh_operator_v1(u, h: float, r: float):
-    """The tiled kernel on any CUDA field, counted nowhere: for timing the
-    earlier design against the strip kernel in one process."""
-    return _launch(None, "sh_operator", 4, u, 1.0 / (h * h), r - 1.0,
-                   c_name=lambda u: "sh_operator_v1")
+    """The tiled kernel on any CUDA field (counted on the ``"tile"`` path):
+    for timing the earlier design against the strip kernel in one
+    process."""
+    return _launch("sh_operator", 4, u, 1.0 / (h * h), r - 1.0, path="tile")
 
 
 def sh_operator_strip_sim(u, h: float, r: float, strip: int = 128, seg: int = 8):
@@ -167,12 +128,3 @@ def sh_operator_strip_sim(u, h: float, r: float, strip: int = 128, seg: int = 8)
                 ua, ub, la, lb = ub, uc, lb, lc
     return out
 
-
-def reset_launches():
-    """Set both wrappers' launch counts to 0."""
-    for fn in (lap_periodic_kernel, sh_operator_kernel):
-        fn.launches = 0
-        fn.launches_by_dtype = dict.fromkeys(_DTYPES.values(), 0)
-
-
-reset_launches()

@@ -15,8 +15,8 @@ potential (``ops.curvilinear.mesh_geometry_dev``) with the droplet's monitor
   :func:`accumulate` — the stages, one launch each of the hand-written
   kernels of ``csrc/pma_substep.cu``; they take CUDA tensors only (the
   plain version is the eager chain itself, which ``loop_pma`` runs
-  elsewhere).  Each wrapper's ``launches`` counts its kernel launches
-  (:data:`WRAPPERS`, :func:`reset_launches`).
+  elsewhere).  The launches are counted in ``ops._build.LAUNCHES`` under
+  the kernel's name (``"pma_source"``, ...).
 - :func:`substep` — the stages and the four DCT matmuls (``torch.matmul``):
   12 launches a sub-step.
 - :func:`pma_substep_tiled_sim` — a CPU rehearsal of the kernels' tiling:
@@ -36,11 +36,11 @@ this path.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
 from ..core.grid import Grid2D
+from ._build import F32, call, check, launch
 from .curvilinear import grad_ksi_neumann, mesh_geometry_dev
 from .dct import dct2, idct2
 from .droplet_jvp import _grow
@@ -66,52 +66,30 @@ def film_gradient(u, grid: Grid2D):
 _P = ctypes.c_void_p
 _I, _D = ctypes.c_int, ctypes.c_double
 _ARGS = {
-    "pma_source_f32": [_P] * 8 + [_I, _I, _D, _D, _P],
-    "pma_smooth_f32": [_P] * 4 + [_I, _I, _P],
-    "pma_rhs_f32": [_P, _P, _P, _I, _P, _P, _I, _I, _D, _D, _D, _D, _P],
-    "pma_divide_f32": [_P, _P, _P, _I, _P],
-    "pma_accumulate_f32": [_P, _P, _P, _I, _D, _P],
+    "pma_source": [_P] * 8 + [_I, _I, _D, _D, _P],
+    "pma_smooth": [_P] * 4 + [_I, _I, _P],
+    "pma_rhs": [_P, _P, _P, _I, _P, _P, _I, _I, _D, _D, _D, _D, _P],
+    "pma_divide": [_P, _P, _P, _I, _P],
+    "pma_accumulate": [_P, _P, _P, _I, _D, _P],
     "pma_source_resources": [_P],
 }
 
 
-@lru_cache(maxsize=None)
-def _kernel(name: str):
-    from ._build import c_function
-
-    return c_function(name, _ARGS[name])
-
-
-def _check(name: str, shape, *fields, extra=()):
-    """Raise on anything the kernel ``name`` does not take: ``fields`` of
-    the grid's ``shape`` and ``extra`` pairs ``(tensor, its shape)``, all
-    f32, contiguous and on one device."""
-    dev = fields[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} kernel takes CUDA tensors, got {dev.type}")
-    for f, want in [(f, shape) for f in fields] + list(extra):
-        if f.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32, got {f.dtype}")
+def _check(kernel: str, shape, *fields, extra=()):
+    """Raise on anything ``kernel`` does not take: ``fields`` of the grid's
+    ``shape`` and ``extra`` pairs ``(tensor, its shape)``, all f32,
+    contiguous and on one CUDA device."""
+    pairs = [(f, shape) for f in fields] + list(extra)
+    for f, want in pairs:
         if tuple(f.shape) != tuple(want):
-            raise ValueError(f"{name} kernel: {tuple(f.shape)} where it takes {tuple(want)}")
-        if f.device != dev:
-            raise ValueError(f"{name} kernel: fields must be on the same device")
-        if not f.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous fields")
-        if f.requires_grad:
-            raise RuntimeError(f"the {name} kernel has no derivative rule")
+            raise ValueError(f"{kernel} kernel: {tuple(f.shape)} where it takes {tuple(want)}")
     if min(shape) < 8:
-        raise ValueError(f"{name} kernel needs ny, nx >= 8, got {tuple(shape)}")
+        raise ValueError(f"{kernel} kernel needs ny, nx >= 8, got {tuple(shape)}")
+    check(kernel, *(f for f, _ in pairs), dtypes=F32)
 
 
-def _launch(name: str, *args):
-    err = _kernel(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(kernel: str, device, *args):
+    launch((kernel, "f32", None), kernel, _ARGS, device, *args)
 
 
 def _ptr(t):
@@ -126,10 +104,9 @@ def source(base, s, u, u_ksi, u_eta, grid: Grid2D, stages=None):
     _check("pma_source", grid.shape, *fields,
            extra=() if stages is None else ((stages, (3, *grid.shape)),))
     src, jac = torch.empty_like(s), torch.empty_like(s)
-    _launch("pma_source_f32", _ptr(base), s.data_ptr(), u.data_ptr(), u_ksi.data_ptr(),
+    _launch("pma_source", s.device, _ptr(base), s.data_ptr(), u.data_ptr(), u_ksi.data_ptr(),
             u_eta.data_ptr(), src.data_ptr(), jac.data_ptr(), _ptr(stages), grid.ny,
-            grid.nx, grid.dx, grid.dy, _stream(s))
-    source.launches += 1
+            grid.nx, grid.dx, grid.dy)
     return src, jac
 
 
@@ -145,9 +122,8 @@ def smooth(t, jac=None):
     _check("pma_smooth", t.shape, t, *(() if jac is None else (jac,)))
     out = torch.empty_like(t)
     partials = None if jac is None else t.new_empty(partials_count(Grid2D(nx=nx, ny=ny)))
-    _launch("pma_smooth_f32", t.data_ptr(), _ptr(jac), out.data_ptr(), _ptr(partials), ny, nx,
-            _stream(t))
-    smooth.launches += 1
+    _launch("pma_smooth", t.device, t.data_ptr(), _ptr(jac), out.data_ptr(), _ptr(partials),
+            ny, nx)
     return out if jac is None else (out, partials)
 
 
@@ -159,10 +135,9 @@ def rhs(mon, jac, partials, grid: Grid2D, mackenzie_c: float, alpha: float, floo
     _check("pma_rhs", grid.shape, mon, jac,
            extra=extra if floor_out is None else extra + ((floor_out, (1,)),))
     out = torch.empty_like(mon)
-    _launch("pma_rhs_f32", mon.data_ptr(), jac.data_ptr(), partials.data_ptr(),
+    _launch("pma_rhs", mon.device, mon.data_ptr(), jac.data_ptr(), partials.data_ptr(),
             partials.numel(), out.data_ptr(), _ptr(floor_out), grid.ny, grid.nx, grid.dx,
-            grid.dy, float(mackenzie_c), float(alpha), _stream(mon))
-    rhs.launches += 1
+            grid.dy, float(mackenzie_c), float(alpha))
     return out
 
 
@@ -170,9 +145,8 @@ def divide(spec, den):
     """``spec / den``, pointwise."""
     _check("pma_divide", spec.shape, spec, den)
     out = torch.empty_like(spec)
-    _launch("pma_divide_f32", spec.data_ptr(), den.data_ptr(), out.data_ptr(), spec.numel(),
-            _stream(spec))
-    divide.launches += 1
+    _launch("pma_divide", spec.device, spec.data_ptr(), den.data_ptr(), out.data_ptr(),
+            spec.numel())
     return out
 
 
@@ -180,31 +154,16 @@ def accumulate(s, dqdt, dt: float):
     """``s + dt * dqdt``, pointwise."""
     _check("pma_accumulate", s.shape, s, dqdt)
     out = torch.empty_like(s)
-    _launch("pma_accumulate_f32", s.data_ptr(), dqdt.data_ptr(), out.data_ptr(), s.numel(),
-            float(dt), _stream(s))
-    accumulate.launches += 1
+    _launch("pma_accumulate", s.device, s.data_ptr(), dqdt.data_ptr(), out.data_ptr(),
+            s.numel(), float(dt))
     return out
-
-
-WRAPPERS = (source, smooth, rhs, divide, accumulate)
-
-
-def reset_launches():
-    """Set the five wrappers' launch counts to 0."""
-    for fn in WRAPPERS:
-        fn.launches = 0
-
-
-reset_launches()
 
 
 def source_resources() -> dict:
     """Registers, shared memory, spills and resident blocks of the card's
     ``pma_source`` kernel."""
     r = (ctypes.c_int * 5)()
-    err = _kernel("pma_source_resources")(ctypes.cast(r, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError(f"pma_source_resources failed: CUDA error {err}")
+    call("pma_source_resources", _ARGS, ctypes.cast(r, ctypes.c_void_p))
     return dict(zip(("registers", "shared_bytes", "spill_bytes", "blocks_per_sm",
                      "threads"), list(r)))
 

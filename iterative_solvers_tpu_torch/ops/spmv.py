@@ -17,8 +17,8 @@ f32 and f64, any ``ny, nx >= 1``, any shifts or offsets, any number of
 terms (none gives ``y = 0``) and any ``nrhs >= 1``: there is no
 eligibility gate and so no fallback.  A term whose source lies outside
 the grid adds nothing whatever its coefficient, as in the plain versions.
-Each wrapper's ``.launches`` counts its kernel launches and
-``.launches_by_dtype`` splits the count into ``"f32"`` and ``"f64"``.
+The launches are counted in ``ops._build.LAUNCHES`` under the wrapper's
+name, with the path that took them.
 
 The SpMV's tiled kernel gives each block an 8 x 128 tile and its own list
 of live terms (dead ones dropped, those whose sources all lie in the grid
@@ -26,10 +26,9 @@ taken as one flat offset with no per-point test, the rest tested per
 point), a thread 4 points of a row; :func:`matvec_path` picks its
 ``"vector"`` path (16-byte loads of coefficients and y) where the rows are
 whole, aligned 16-byte vectors and its ``"scalar"`` path otherwise, from
-shape and address alone; ``grid_dia_matvec.launches_by_path`` splits the
-count.  :func:`grid_dia_matvec_tiled_sim` rehearses it on the CPU, and
-:func:`grid_dia_block_terms` is its classification of the terms for one
-tile.
+shape and address alone.  :func:`grid_dia_matvec_tiled_sim` rehearses it
+on the CPU, and :func:`grid_dia_block_terms` is its classification of the
+terms for one tile.
 
 The SpMM has two hand-written kernels, chosen by :func:`spmm_path` from
 the container's terms, the shape and the addresses alone, never by a
@@ -41,12 +40,10 @@ the tiled SpMV's per-block live-term lists to a stack: a tile of 8 x 64
 f32 / 8 x 32 f64 points, a register tile of up to 8 right-hand sides, each
 coefficient loaded once for all of them, and x staged in a shared-memory
 window of the tile and its reach; :func:`matvec_path` names its path for
-the stack too (``"vector"``: the window copied as 16-byte vectors).  The
-two SpMM wrappers' ``.launches_by_path`` splits their count by kernel.
+the stack too (``"vector"``: the window copied as 16-byte vectors); the
+SpMM's path is the kernel's, ``"slab"`` or ``"general"``.
 :func:`grid_dia_matmat_slab_sim` and :func:`grid_dia_matmat_tiled_sim`
-rehearse the two on the CPU.  The one-thread-a-point SpMM of the earlier
-design stays reachable for timing in turns (``_matmat_general_v1``,
-counted nowhere).
+rehearse the two on the CPU.
 
 The JAX wrappers' ``block_rows`` sizes the TPU's slab pipeline and has no
 counterpart here.  The kernels have no derivative rule, as the Pallas
@@ -59,26 +56,17 @@ from functools import lru_cache
 
 import torch
 
-from .periodic_stencil import _DTYPES, _check_no_autodiff
+from ._build import DTYPES, check, launch
 from .sparse import DIA, GridDIA, term_order
 
 _INT32_MAX = 2 ** 31 - 1
 
-
-@lru_cache(maxsize=None)
-def _kernel(name: str):
-    from ._build import c_function
-
-    p, i = ctypes.c_void_p, ctypes.c_int
-    if name.startswith("grid_dia_matmat_slab"):
-        args = [p, p, i, p, p, i, i, i, i, i, i, i, p]
-    elif name.startswith("dia_flat_matvec"):
-        args = [p, p, i, p, p, ctypes.c_longlong, p]
-    elif name.startswith("grid_dia_matvec"):
-        args = [p, p, i, p, p, i, i, i, i, p]
-    else:  # the tiled SpMM in either layout, and the earlier design
-        args = [p, p, i, p, p, i, i, i, i, i, p]
-    return c_function(name, args)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = {"grid_dia_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+         "dia_flat_matvec": [_P, _P, _I, _P, _P, ctypes.c_longlong, _P],
+         "grid_dia_matmat": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+         "grid_dia_matmat_interleaved": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+         "grid_dia_matmat_slab": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]}
 
 
 @lru_cache(maxsize=128)
@@ -151,7 +139,7 @@ def spmm_path(a: GridDIA, x) -> str:
     multiple of a 16-byte vector, ``x`` and the coefficients are 16-byte
     aligned and the stages fit a block's shared memory; ``"general"``
     otherwise.  Decided from shape, terms and address alone."""
-    if x.dtype not in _DTYPES or a.data.dtype != x.dtype:
+    if x.dtype not in DTYPES or a.data.dtype != x.dtype:
         return "general"
     itemsize = x.element_size()
     vector = 16 // itemsize
@@ -243,7 +231,7 @@ def matvec_path(a: GridDIA, x2) -> str:
     window as 16-byte vectors; ``"scalar"`` otherwise (odd widths such as
     999 f64).  Decided from shape and address alone (a functorch-wrapped
     tensor has no address: ``"scalar"``, and the launch refuses it)."""
-    vector = 16 // x2.element_size() if x2.dtype in _DTYPES else 0
+    vector = 16 // x2.element_size() if x2.dtype in DTYPES else 0
     wrapped = torch._C._functorch.is_functorch_wrapped_tensor
     if (not vector or a.grid[1] % vector or wrapped(x2) or wrapped(a.data)
             or (x2.data_ptr() | a.data.data_ptr()) % 16):
@@ -467,34 +455,19 @@ def _check_operands(name: str, data, x, data_shape, x_shape):
                          f"expected {tuple(x_shape)}")
 
 
-def _launch(wrapper, name: str, data, terms, x, *ints, path=None):
-    """Check the operands for the kernel ``name``, allocate the output,
-    launch on the current stream and count the launch on ``wrapper`` (and
-    under ``path``) if there is one; raise on anything the kernel does not
-    take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} kernel runs on a CUDA device, got {x.device}")
-    _check_no_autodiff(x, name)
-    _check_no_autodiff(data, name)
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name} kernel takes float32 or float64, got {x.dtype}")
-    if not (x.is_contiguous() and data.is_contiguous()):
-        raise ValueError(f"{name} kernel takes contiguous tensors")
+def _check(kernel: str, data, x) -> str:
+    """Raise on operands the kernel does not take; returns x's dtype tag."""
     if x.numel() == 0:
-        raise ValueError(f"{name} kernel takes a non-empty x")
+        raise ValueError(f"{kernel} kernel takes a non-empty x")
+    return check(kernel, x, data)
+
+
+def _launch(key: tuple, c_base: str, data, terms, x, *ints):
+    """Allocate the output and launch ``c_base`` on checked operands,
+    counted under ``key``."""
     out = torch.empty_like(x)
-    tag = _DTYPES[x.dtype]
-    err = _kernel(f"{name}_{tag}")(
-        data.data_ptr(), terms.data_ptr(), terms.shape[0], x.data_ptr(),
-        out.data_ptr(), *ints,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if wrapper is not None:
-        wrapper.launches += 1
-        wrapper.launches_by_dtype[tag] += 1
-        if path is not None:
-            wrapper.launches_by_path[path] += 1
+    launch(key, c_base, _ARGS, x.device, data.data_ptr(), terms.data_ptr(), terms.shape[0],
+           x.data_ptr(), out.data_ptr(), *ints)
     return out
 
 
@@ -505,10 +478,11 @@ def grid_dia_matvec(a: GridDIA, x2):
     _check_operands("grid_dia_matvec", a.data, x2, (len(a.shifts), ny, nx), (ny, nx))
     if x2.device.type == "cpu":
         return a._apply(x2)
+    tag = _check("grid_dia_matvec", a.data, x2)
     terms = _grid_terms(a.shifts, a.grid, a.cyclic, x2.device)
     path = matvec_path(a, x2)
-    return _launch(grid_dia_matvec, "grid_dia_matvec", a.data, terms, x2,
-                   ny, nx, int(a.cyclic), int(path == "vector"), path=path)
+    return _launch(("grid_dia_matvec", tag, path), "grid_dia_matvec", a.data, terms, x2,
+                   ny, nx, int(a.cyclic), int(path == "vector"))
 
 
 def dia_flat_matvec(a: DIA, grid: tuple[int, int], x):
@@ -525,8 +499,9 @@ def dia_flat_matvec(a: DIA, grid: tuple[int, int], x):
         return a.matvec(x)
     if a.n > _INT32_MAX:
         raise ValueError(f"dia_flat_matvec kernel takes n < 2^31, got {a.n}")
+    tag = _check("dia_flat_matvec", a.data, x)
     terms = _flat_terms(a.offsets, a.n, x.device)
-    return _launch(dia_flat_matvec, "dia_flat_matvec", a.data, terms, x, a.n)
+    return _launch(("dia_flat_matvec", tag, None), "dia_flat_matvec", a.data, terms, x, a.n)
 
 
 def _matmat_plain(a: GridDIA, x3):
@@ -534,38 +509,29 @@ def _matmat_plain(a: GridDIA, x3):
     return torch.stack([a._apply(x3[r]) for r in range(x3.shape[0])])
 
 
-def _matmat_launch(wrapper, a: GridDIA, x, nrhs: int, interleaved: bool,
-                   path: str):
-    """Launch the SpMM kernel of ``path`` on the stack ``x`` and count it
-    on ``wrapper`` (none: counted nowhere)."""
+def _matmat_launch(a: GridDIA, x, nrhs: int, interleaved: bool, path=None):
+    """Check the stack ``x`` and launch the SpMM kernel of ``path`` (by
+    default the one :func:`spmm_path` names) on it."""
+    kernel = "grid_dia_matmat_interleaved" if interleaved else "grid_dia_matmat"
+    tag = _check(kernel, a.data, x)
+    path = path or spmm_path(a, x)
     ny, nx = a.grid
     if path == "slab":
         _, hy, hx = _slab_rows(a.shifts, a.grid, a.cyclic)
         terms = _slab_terms(a.shifts, a.grid, a.cyclic, x.device)
-        return _launch(wrapper, "grid_dia_matmat_slab", a.data, terms, x, nrhs, ny, nx,
-                       int(a.cyclic), int(interleaved), hy, hx, path=path)
-    name = "grid_dia_matmat_interleaved" if interleaved else "grid_dia_matmat"
+        return _launch((kernel, tag, path), "grid_dia_matmat_slab", a.data, terms, x, nrhs,
+                       ny, nx, int(a.cyclic), int(interleaved), hy, hx)
     terms = _grid_terms(a.shifts, a.grid, a.cyclic, x.device)
-    return _launch(wrapper, name, a.data, terms, x, nrhs, ny, nx, int(a.cyclic),
-                   int(matvec_path(a, x) == "vector"), path=path)
+    return _launch((kernel, tag, path), kernel, a.data, terms, x, nrhs, ny, nx, int(a.cyclic),
+                   int(matvec_path(a, x) == "vector"))
 
 
 def _matmat_general(a: GridDIA, x, interleaved: bool = False):
-    """The general (tiled) SpMM kernel on any CUDA stack, counted nowhere:
-    for timing it against the slab kernel in one process."""
-    nrhs = x.shape[1] if interleaved else x.shape[0]
-    return _matmat_launch(None, a, x, nrhs, interleaved, "general")
-
-
-def _matmat_general_v1(a: GridDIA, x, interleaved: bool = False):
-    """The one-thread-a-point SpMM of the earlier design on any CUDA stack,
-    counted nowhere: for timing the tiled kernel against it in one
+    """The general (tiled) SpMM kernel on any CUDA stack (counted on the
+    ``"general"`` path): for timing it against the slab kernel in one
     process."""
     nrhs = x.shape[1] if interleaved else x.shape[0]
-    ny, nx = a.grid
-    terms = _grid_terms(a.shifts, a.grid, a.cyclic, x.device)
-    return _launch(None, "grid_dia_matmat_v1", a.data, terms, x, nrhs, ny, nx,
-                   int(a.cyclic), int(interleaved))
+    return _matmat_launch(a, x, nrhs, interleaved, "general")
 
 
 def grid_dia_matmat(a: GridDIA, x3):
@@ -581,7 +547,7 @@ def grid_dia_matmat(a: GridDIA, x3):
                     (nrhs, ny, nx))
     if x3.device.type == "cpu":
         return _matmat_plain(a, x3)
-    return _matmat_launch(grid_dia_matmat, a, x3, nrhs, False, spmm_path(a, x3))
+    return _matmat_launch(a, x3, nrhs, False)
 
 
 def grid_dia_matmat_interleaved(a: GridDIA, xi):
@@ -598,22 +564,5 @@ def grid_dia_matmat_interleaved(a: GridDIA, xi):
                     (len(a.shifts), ny, nx), (ny, nrhs, nx))
     if xi.device.type == "cpu":
         return torch.movedim(_matmat_plain(a, torch.movedim(xi, 1, 0)), 0, 1)
-    return _matmat_launch(grid_dia_matmat_interleaved, a, xi, nrhs, True,
-                          spmm_path(a, xi))
+    return _matmat_launch(a, xi, nrhs, True)
 
-
-WRAPPERS = (grid_dia_matvec, dia_flat_matvec, grid_dia_matmat,
-            grid_dia_matmat_interleaved)
-
-
-def reset_launches():
-    """Set the four wrappers' launch counts to 0."""
-    for fn in WRAPPERS:
-        fn.launches = 0
-        fn.launches_by_dtype = dict.fromkeys(_DTYPES.values(), 0)
-    grid_dia_matvec.launches_by_path = {"vector": 0, "scalar": 0}
-    for fn in (grid_dia_matmat, grid_dia_matmat_interleaved):
-        fn.launches_by_path = {"slab": 0, "general": 0}
-
-
-reset_launches()

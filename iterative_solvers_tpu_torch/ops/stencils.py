@@ -20,7 +20,8 @@ and leading axes and returns the plain body's layout, its interior and
 scale bit for bit and each edge point summed as one FMA chain from the
 first term; any other CUDA tensor raises.  With the tracing of
 ``utils.trace`` on, ``stencil.calls`` counts every call of the four and
-``stencil.kernel`` those during which the kernel's launch count rose.
+``stencil.kernel`` those during which the kernel's count in
+``ops._build.LAUNCHES`` rose.
 :data:`PLAIN` holds the four plain bodies.  ``ops.curvilinear``'s geometry,
 gradient and Laplacian and ``models.droplet.monitor_source`` take the set of
 stencils they call (``fd``); the plain versions that kernels are held to
@@ -37,6 +38,7 @@ import torch
 from torch.autograd import forward_ad
 
 from ..utils.trace import count
+from ._build import DTYPES, LAUNCHES, check, launch
 
 # One-sided edge rows, applied to the first/last 5 (d1) or 6 (d2) entries.
 # d1: /(12h).  d2: /(12h^2); rows 0/-1 assume a known Neumann value at the
@@ -112,9 +114,10 @@ def _stencil(u, order: int, axis: int, h: float, plain):
     count("stencil.calls")
     if u.device.type == "cpu":
         return plain(u, h)
-    before = fd_stencil_kernel.launches
+    key = ("fd_stencil", DTYPES.get(u.dtype), None)
+    before = LAUNCHES[key]
     out = fd_stencil_kernel(u, order, axis, h)
-    count("stencil.kernel", int(fd_stencil_kernel.launches > before))
+    count("stencil.kernel", int(LAUNCHES[key] > before))
     return out
 
 
@@ -140,46 +143,30 @@ def d2_y(u, dy: float):
 
 # -- the kernel --------------------------------------------------------------
 
-_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-
-
-@lru_cache(maxsize=None)
-def _kernel(tag: str):
-    from ._build import c_function
-
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return c_function(f"fd_stencil_{tag}", [p, p, i, i, i, ll, ll, ll, ll, ctypes.c_double, p])
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGS = {"fd_stencil": [_P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, ctypes.c_double, _P]}
 
 
 def _launch(u, order: int, axis: int, h: float):
     """One launch of the kernel on the CUDA field ``u``; raises on anything
     it does not take."""
-    def name():
-        return f"the d{order}_{'x' if axis == -1 else 'y'} kernel"
-
-    if u.device.type != "cuda":
-        raise ValueError(f"{name()} runs on a CUDA device, got {u.device}")
-    tag = _DTYPES.get(u.dtype)
-    if tag is None:
-        raise TypeError(f"{name()} takes float32 or float64, got {u.dtype}")
+    name = f"d{order}_{'x' if axis == -1 else 'y'}"
     if u.dim() < -axis:
-        raise ValueError(f"{name()} takes no {u.dim()}-D tensor")
+        raise ValueError(f"the {name} kernel takes no {u.dim()}-D tensor")
     v = u if u.dim() >= 2 else u.unsqueeze(0)
     other = -2 if axis == -1 else -1
     n, m = v.shape[axis], v.shape[other]
     if n < 4 + order:
-        raise ValueError(f"{name()} needs {4 + order} points along its axis, got {n}")
+        raise ValueError(f"the {name} kernel needs {4 + order} points along its axis, got {n}")
+    tag = check(name, u, strided=True)
     out = torch.empty(v.shape[:-2] + (m, n), dtype=u.dtype, device=u.device)
     if out.numel():
         # the leading axes as one batch axis (a copy only where no stride walks them)
         w = v.reshape(-1, *v.shape[-2:])
         s = 1.0 / (12.0 * h) if order == 1 else 1.0 / (12.0 * h * h)
-        err = _kernel(tag)(w.data_ptr(), out.data_ptr(), order, n, m, w.stride(axis),
-                           w.stride(other), w.shape[0], w.stride(0), float(s),
-                           torch.cuda.current_stream(u.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name()} launch failed: CUDA error {err}")
-        fd_stencil_kernel.launches += 1
+        launch(("fd_stencil", tag, None), "fd_stencil", _ARGS, u.device, w.data_ptr(),
+               out.data_ptr(), order, n, m, w.stride(axis), w.stride(other), w.shape[0],
+               w.stride(0), float(s))
     if axis == -2:
         out = out.transpose(-1, -2)
     return out if u.dim() >= 2 else out.squeeze(0)
@@ -193,7 +180,7 @@ class _FdStencil(torch.autograd.Function):
 
     @staticmethod
     def forward(u, order, axis, h):
-        return _launch(u, order, axis, h)
+        return _launch(u.detach(), order, axis, h)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -215,14 +202,10 @@ def fd_stencil_kernel(u, order: int, axis: int, h: float):
     ``csrc/fd_stencil.cu`` into a fresh tensor laid out as the plain body
     lays it out (``*_x`` contiguous, ``*_y`` the transpose of a contiguous
     ``(..., nx, ny)`` field).  Under autodiff the launch goes through
-    :class:`_FdStencil`.  ``fd_stencil_kernel.launches`` counts the
-    launches."""
+    :class:`_FdStencil`."""
     if u.requires_grad or _wrapped(u) or forward_ad._current_level >= 0:
         return _FdStencil.apply(u, order, axis, h)
     return _launch(u, order, axis, h)
-
-
-fd_stencil_kernel.launches = 0
 
 
 def dxy(u, dx: float, dy: float):

@@ -18,8 +18,8 @@ hand-written kernel of ``csrc/stream_ladder.cu`` (f32 or f64) or raises.
 The knobs are the TPU kernels' own: ``bm`` rows a tile, ``slots`` stages
 of the ring, ``depth`` tiles in flight, ``halos``.  A tile is ``bm`` rows by
 a strip of columns that :func:`stream_tiling` sizes so that ``slots``
-tiles fit a block's ring.  Each wrapper's ``.launches`` counts its calls
-that launched the kernel.
+tiles fit a block's ring.  The launches are counted in
+``ops._build.LAUNCHES`` under the wrapper's name.
 """
 from __future__ import annotations
 
@@ -29,8 +29,9 @@ from functools import lru_cache
 
 import torch
 
+from ._build import DTYPES, check, launch
+
 HALO = 8                  # rows folded by the read; halo rows each side of a tile
-_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _RING_BYTES = 115712      # csrc/stream_ladder.cu kRingBytes: two blocks an SM
 _MAX_WIDTH = 512          # kMaxWidth: columns of a strip
 _MAX_SLOTS = 8            # kMaxSlots
@@ -76,7 +77,7 @@ def check_knobs(n_rows: int, n_cols: int, bm: int, slots: int, depth: int | None
     multiple of 8 dividing ``n_rows``, rows of whole 16-byte vectors,
     ``1 <= slots <= 8`` (with a ``depth``: ``1 <= depth < slots``), a ring
     that holds ``slots`` tiles of at least 16 bytes a row, f32 or f64."""
-    if dtype is not None and dtype not in _DTYPES:
+    if dtype is not None and dtype not in DTYPES:
         raise TypeError(f"the stream kernels take float32 or float64, got {dtype}")
     if bm < HALO or bm % HALO:
         raise ValueError(f"bm must be a positive multiple of {HALO}, got {bm}")
@@ -104,15 +105,10 @@ def write_plain(tok, n_rows: int, bm: int):
     return tok[0] * 0.5 + c[:, None]
 
 
-@lru_cache(maxsize=None)
-def _kernel(name: str):
-    from ._build import c_function
-
-    p, i = ctypes.c_void_p, ctypes.c_int
-    args = {"stream_read": [p, p, p, p] + [i] * 6,
-            "stream_write": [p, p] + [i] * 6,
-            "staged_copy": [p, p] + [i] * 8}[name.rsplit("_", 1)[0]]
-    return c_function(name, args + [p])
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = {"stream_read": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+         "stream_write": [_P, _P] + [_I] * 6 + [_P],
+         "staged_copy": [_P, _P] + [_I] * 8 + [_P]}
 
 
 @lru_cache(maxsize=None)
@@ -123,7 +119,7 @@ def _sms(index: int) -> int:
 def check_field(name: str, x, shape, dtype=None):
     """Raise unless ``x`` is an f32 / f64 tensor (of ``dtype`` if given) of
     ``shape`` on the CPU or, contiguous and 16-byte aligned, on a card."""
-    if x.dtype not in _DTYPES or (dtype is not None and x.dtype != dtype):
+    if x.dtype not in DTYPES or (dtype is not None and x.dtype != dtype):
         raise TypeError(f"{name}: float32 or float64 {dtype or ''} expected, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(shape)} expected, got {tuple(x.shape)}")
@@ -131,15 +127,6 @@ def check_field(name: str, x, shape, dtype=None):
         raise ValueError(f"{name}: a CPU or CUDA tensor expected, got {x.device}")
     if x.device.type == "cuda" and not (x.is_contiguous() and x.data_ptr() % 16 == 0):
         raise ValueError(f"{name}: the kernel takes a contiguous, 16-byte aligned field")
-
-
-def _run(wrapper, name: str, x, *args):
-    """Launch ``name`` for ``x``'s dtype on its device's current stream."""
-    err = _kernel(f"{name}_{_DTYPES[x.dtype]}")(
-        *args, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
 
 
 def stream_read(u, tok, bm: int, slots: int):
@@ -155,12 +142,14 @@ def stream_read(u, tok, bm: int, slots: int):
         raise ValueError(f"stream_read: u on {u.device}, tok on {tok.device}")
     if u.device.type == "cpu":
         return read_plain(u, tok, bm)
+    tag = check("stream_read", u, tok)
     t = stream_tiling(n_rows, n_cols, bm, slots, False, u.element_size(),
                       _sms(u.device.index or 0))
     partial = torch.empty((t.groups, HALO, n_cols), dtype=u.dtype, device=u.device)
     out = torch.empty_like(tok)
-    _run(stream_read, "stream_read", u, u.data_ptr(), tok.data_ptr(),
-         partial.data_ptr(), out.data_ptr(), n_rows, n_cols, bm, slots, t.width, t.per)
+    launch(("stream_read", tag, None), "stream_read", _ARGS, u.device, u.data_ptr(),
+           tok.data_ptr(), partial.data_ptr(), out.data_ptr(), n_rows, n_cols, bm, slots,
+           t.width, t.per)
     return out
 
 
@@ -173,11 +162,12 @@ def stream_write(tok, n_rows: int, bm: int, slots: int):
     check_field("stream_write tok", tok, (HALO, n_cols))
     if tok.device.type == "cpu":
         return write_plain(tok, n_rows, bm)
+    tag = check("stream_write", tok)
     t = stream_tiling(n_rows, n_cols, bm, slots, False, tok.element_size(),
                       _sms(tok.device.index or 0))
     out = torch.empty((n_rows, n_cols), dtype=tok.dtype, device=tok.device)
-    _run(stream_write, "stream_write", tok, tok.data_ptr(), out.data_ptr(),
-         n_rows, n_cols, bm, slots, t.width, t.per)
+    launch(("stream_write", tag, None), "stream_write", _ARGS, tok.device, tok.data_ptr(),
+           out.data_ptr(), n_rows, n_cols, bm, slots, t.width, t.per)
     return out
 
 
@@ -190,18 +180,11 @@ def staged_copy(u, bm: int, slots: int = 2, depth: int = 1, halos: bool = False)
     check_field("staged_copy u", u, (n_rows, n_cols))
     if u.device.type == "cpu":
         return u.clone()
+    tag = check("staged_copy", u)
     t = stream_tiling(n_rows, n_cols, bm, slots, halos, u.element_size(),
                       _sms(u.device.index or 0))
     out = torch.empty_like(u)
-    _run(staged_copy, "staged_copy", u, u.data_ptr(), out.data_ptr(), n_rows, n_cols,
-         bm, slots, depth, int(bool(halos)), t.width, t.per)
+    launch(("staged_copy", tag, None), "staged_copy", _ARGS, u.device, u.data_ptr(),
+           out.data_ptr(), n_rows, n_cols, bm, slots, depth, int(bool(halos)), t.width, t.per)
     return out
 
-
-def reset_launches():
-    """Set the three wrappers' launch counts to 0."""
-    for fn in (stream_read, stream_write, staged_copy):
-        fn.launches = 0
-
-
-reset_launches()

@@ -299,22 +299,22 @@ def test_cli_droplet_fast_launches_kernel_on_card(cuda, capsys, tmp_path, coal):
     through the droplet_jvp kernel, and its step is the CPU run's (the plain
     JVP there): the same Newton count, u within 5e-7 (the f32 inner Krylov's
     gate), q within 1e-8."""
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     cfg, u0, q0 = coal
     start = tmp_path / "start.npz"
     ck.save(start, {"u": u0, "q": q0}, config=cfg)
     lines = {}
     for dev in ("cuda", "cpu"):
-        before = jvp_matvec.launches
+        before = launch_count("droplet_jvp")
         assert cli.main(["droplet", "--restart", str(start), "--steps", "2", "--fast",
                          "--pma-loops", "20", "--checkpoint", str(tmp_path / f"{dev}.npz"),
                          "--device", dev]) == 0
         lines[dev] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         if dev == "cuda":
-            assert jvp_matvec.launches > before
+            assert launch_count("droplet_jvp") > before
         else:
-            assert jvp_matvec.launches == before
+            assert launch_count("droplet_jvp") == before
     assert lines["cuda"]["final_fnorm"] <= 1e-7
     assert lines["cuda"]["t"] == pytest.approx(lines["cpu"]["t"], rel=1e-6)
     fast = dataclasses.replace(cfg, spectral_dtype="float32", mesh_dtype="float32")

@@ -378,13 +378,13 @@ def test_kernel_bodies_match_plain_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import torch.distributed as dist
-    from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     tm.initialize_multihost(f"localhost:{_free_port()}", 1, 0, device="cuda",
                             timeout=60)
     try:
         mesh = tm.make_mesh(device="cuda")
-        ps.reset_launches()
+        before = (launch_count("sh_operator"), launch_count("lap_periodic"))
         for dtype, gate in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
             u = torch.tensor(_field(256, 9), dtype=dtype, device="cuda")
             for got, plain in (
@@ -395,7 +395,7 @@ def test_kernel_bodies_match_plain_on_gpu():
                 torch.cuda.synchronize()
                 scale = float(plain.abs().max())
                 assert float((got.cpu() - plain).abs().max()) <= gate * scale
-        assert ps.sh_operator_kernel.launches == 2
-        assert ps.lap_periodic_kernel.launches == 2
+        assert launch_count("sh_operator") == before[0] + 2
+        assert launch_count("lap_periodic") == before[1] + 2
     finally:
         dist.destroy_process_group()

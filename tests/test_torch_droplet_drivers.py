@@ -307,15 +307,15 @@ def test_kernel_mode_step_on_card_matches_golden(cuda):
     """The 91x61 step with the inner Krylov through the droplet_jvp kernel
     against the scipy golden step (1.2e-11 on record; gate 1e-9 in u,
     1e-8 in q)."""
-    from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_matvec
+    from iterative_solvers_tpu_torch.ops._build import launch_count
 
     fix, g = tfx.load_golden_step()
     cfg = tfx.config_for(fix)
     dt = float(g["dt"])
-    before = jvp_matvec.launches
+    before = launch_count("droplet_jvp")
     out = tdp.make_step(cfg, dt=dt, dtmesh=3e-9, pma_loops=5, **KERNEL_MODE)(
         torch.tensor(fix.u, device=cuda), torch.tensor(fix.q, device=cuda), dt)
-    assert out.converged and jvp_matvec.launches > before
+    assert out.converged and launch_count("droplet_jvp") > before
     np.testing.assert_allclose(out.u.cpu().numpy(), g["u_new"], atol=1e-9)
     np.testing.assert_allclose(out.q.cpu().numpy(), g["q_new"], atol=1e-8)
 

@@ -22,6 +22,7 @@ from iterative_solvers_tpu_torch.models import droplet as tdp
 from iterative_solvers_tpu_torch.ops import curvilinear as tcv
 from iterative_solvers_tpu_torch.core.grid import Grid2D
 from iterative_solvers_tpu_torch.ops.droplet_jvp import jvp_apply_ref, jvp_matvec
+from iterative_solvers_tpu_torch.ops._build import launch_count
 
 DT = 1e-5
 TOL = 2e-5
@@ -135,9 +136,9 @@ def _port_stack(case, device):
 
 def test_wrapper_takes_plain_version_on_cpu():
     cfg, stack, v = _port_stack("perturbed_128x64", "cpu")
-    before = jvp_matvec.launches
+    before = launch_count("droplet_jvp")
     got = jvp_matvec(v, stack, cfg.grid)
-    assert jvp_matvec.launches == before
+    assert launch_count("droplet_jvp") == before
     np.testing.assert_array_equal(got.numpy(),
                                   jvp_apply_ref(v, stack, cfg.grid).numpy())
 
@@ -156,10 +157,10 @@ def test_cuda_kernel_matches_plain(cuda, case):
     """The CUDA kernel against the plain version on the card, at 1e-5 of
     max|plain| (the two contract their sums in another order)."""
     cfg, stack, v = _port_stack(case, "cuda")
-    before = jvp_matvec.launches
+    before = launch_count("droplet_jvp")
     got = jvp_matvec(v, stack, cfg.grid)
     torch.cuda.synchronize()
-    assert jvp_matvec.launches == before + 1
+    assert launch_count("droplet_jvp") == before + 1
     _close(got.cpu().numpy(), jvp_apply_ref(v, stack, cfg.grid).cpu().numpy(),
            tol=1e-5)
 
@@ -183,10 +184,10 @@ def _synthetic(ny, nx, device):
                                    (1024, 1024)])
 def test_cuda_kernel_matches_plain_on_synthetic_grids(cuda, shape):
     grid, v, stack = _synthetic(*shape, cuda)
-    before = jvp_matvec.launches
+    before = launch_count("droplet_jvp")
     got = jvp_matvec(v, stack, grid)
     torch.cuda.synchronize()
-    assert jvp_matvec.launches == before + 1
+    assert launch_count("droplet_jvp") == before + 1
     want = jvp_apply_ref(v, stack, grid).cpu().numpy()
     _close(got.cpu().numpy(), want, tol=1e-5)
 

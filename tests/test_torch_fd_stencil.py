@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from iterative_solvers_tpu_torch.ops import stencils
+from iterative_solvers_tpu_torch.ops._build import launch_count
 
 H = {"x": 0.1, "y": 0.07}
 NAMES = ["d1_x", "d1_y", "d2_x", "d2_y"]
@@ -81,9 +82,9 @@ def _plain(name, u):
 
 
 def _kernel(name, u):
-    before = stencils.fd_stencil_kernel.launches
+    before = launch_count("fd_stencil")
     got = getattr(stencils, name)(u, H[name[-1]])
-    assert stencils.fd_stencil_kernel.launches == before + 1
+    assert launch_count("fd_stencil") == before + 1
     return got
 
 
@@ -113,9 +114,9 @@ def test_kernel_is_the_plain_body_where_cublas_chains(cuda, name, dtype, shape):
 @pytest.mark.gpu
 def test_forward_mode_takes_the_kernel_on_the_tangent(cuda):
     u, t = _field((61, 91), torch.float32, cuda), _field((61, 91), torch.float32, cuda, 6)
-    before = stencils.fd_stencil_kernel.launches
+    before = launch_count("fd_stencil")
     out, tangent = torch.func.jvp(lambda w: stencils.d2_y(w, 0.07), (u,), (t,))
-    assert stencils.fd_stencil_kernel.launches == before + 2
+    assert launch_count("fd_stencil") == before + 2
     assert torch.equal(out, stencils.d2_y(u, 0.07))
     assert torch.equal(tangent, stencils.d2_y(t, 0.07))
 

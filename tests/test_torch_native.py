@@ -33,6 +33,7 @@ from scipy.sparse.linalg import lgmres as scipy_lgmres
 
 from iterative_solvers_tpu_torch import native
 from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+from iterative_solvers_tpu_torch.ops._build import launch_count
 
 CPU = {"device": "cpu"}
 
@@ -214,9 +215,9 @@ def test_sh_evolve_on_card_matches_cpu(cuda):
     whose operators agree to f64 rounding), and the kernel launched."""
     assert native.ensure_built().exists()
     u0 = np.random.default_rng(0).standard_normal(64 * 64)
-    ps.reset_launches()
+    before = launch_count("sh_operator", dtype="f64")
     ug, cg = native.sh_evolve(u0, 3, device=cuda)
-    launched = ps.sh_operator_kernel.launches_by_dtype["f64"]
+    launched = launch_count("sh_operator", dtype="f64") - before
     uc, cc = native.sh_evolve(u0, 3, **CPU)
     assert cg == cc == 3 and launched > 0
     np.testing.assert_allclose(ug, uc, atol=1e-8)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+from iterative_solvers_tpu_torch.ops._build import check, launch_count
 from iterative_solvers_tpu_torch.ops import stencils as tst
 
 SHAPES = [(24, 24), (32, 48)]
@@ -60,10 +61,10 @@ def test_stencil_matches_jax(jst, name, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_wrappers_take_plain_version_on_cpu(shape):
     u = torch.tensor(_field(shape))
-    before = (ps.lap_periodic_kernel.launches, ps.sh_operator_kernel.launches)
+    before = (launch_count("lap_periodic"), launch_count("sh_operator"))
     lap = ps.lap_periodic_kernel(u, H)
     sh = ps.sh_operator_kernel(u, H, R)
-    assert (ps.lap_periodic_kernel.launches, ps.sh_operator_kernel.launches) == before
+    assert (launch_count("lap_periodic"), launch_count("sh_operator")) == before
     np.testing.assert_array_equal(lap.numpy(), tst.lap_periodic(u, H).numpy())
     np.testing.assert_array_equal(sh.numpy(), tst.sh_linear_operator(u, H, R).numpy())
 
@@ -74,18 +75,18 @@ def test_kernel_refuses_autodiff():
     u = torch.tensor(_field((8, 8)))
 
     def f(x):
-        ps._check_no_autodiff(x, "sh_operator")
+        check("sh_operator", x)
         return x
 
     with pytest.raises(RuntimeError, match="no derivative rule"):
         torch.func.jvp(f, (u,), (u,))
-    ps._check_no_autodiff(u, "sh_operator")  # a plain tensor passes
+    with pytest.raises(ValueError, match="CUDA device"):  # a plain tensor gets past autodiff
+        check("sh_operator", u)
 
 
 def test_launch_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA device"):
-        ps._launch(ps.sh_operator_kernel, "sh_operator", 4,
-                   torch.zeros(8, 8), 1.0, 0.0)
+        ps._launch("sh_operator", 4, torch.zeros(8, 8), 1.0, 0.0)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -125,13 +126,13 @@ def test_cuda_kernel_matches_plain(cuda, kernel, case):
     shape, dtype, h, rel = GPU_CASES[case]
     u = torch.tensor(_field(shape), dtype=dtype, device=dev)
     wrapper = getattr(ps, f"{kernel}_kernel")
-    before = wrapper.launches
+    before = launch_count(kernel)
     if kernel == "lap_periodic":
         got, want = wrapper(u, h), tst.lap_periodic(u, h)
     else:
         got, want = wrapper(u, h, R), tst.sh_linear_operator(u, h, R)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert launch_count(kernel) == before + 1
     assert got.dtype == dtype and got.shape == u.shape
     _close(got.cpu().numpy(), want.cpu().numpy(), rel)
 

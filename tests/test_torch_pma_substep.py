@@ -33,7 +33,10 @@ from iterative_solvers_tpu_torch.meshmove import pma
 from iterative_solvers_tpu_torch.meshmove.monitor import smooth_pass
 from iterative_solvers_tpu_torch.models import droplet as dp
 from iterative_solvers_tpu_torch.ops import curvilinear as cv, pma_substep as ps, stencils
+from iterative_solvers_tpu_torch.ops._build import launch_count
 from iterative_solvers_tpu_torch.utils import trace
+
+STAGES = ["source", "smooth", "rhs", "divide", "accumulate"]
 
 SHAPES = [(48, 48), (61, 91), (29, 37)]
 ALPHA, GAMMA, C = 0.01, 0.1, 0.15
@@ -101,7 +104,7 @@ def test_staged_hooks_change_nothing(shape):
     assert sorted(seen) == sorted(set(ps.source_regions((0, 8), (0, 8), *shape)) - {"phi"})
 
 
-@pytest.mark.parametrize("name", [f.__name__ for f in ps.WRAPPERS])
+@pytest.mark.parametrize("name", STAGES)
 def test_stage_wrappers_take_only_cuda_tensors(name):
     """No CPU branch: the plain version is the eager chain, which
     ``loop_pma`` runs on the CPU."""
@@ -113,10 +116,10 @@ def test_stage_wrappers_take_only_cuda_tensors(name):
             "rhs": lambda: ps.rhs(s, s, s.new_zeros(ps.partials_count(grid)), grid, C, ALPHA),
             "divide": lambda: ps.divide(s, den),
             "accumulate": lambda: ps.accumulate(s, s, 1e-9)}[name]
-    before = getattr(ps, name).launches
+    before = launch_count(f"pma_{name}")
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    assert getattr(ps, name).launches == before
+    assert launch_count(f"pma_{name}") == before
 
 
 # (ny, nx), source tile, smoothing tile: the kernels' tiles, and smaller
@@ -400,9 +403,9 @@ def _card_stages(base, s, u, grid):
 def test_source_kernel_is_the_eager_chain_bit_for_bit(cuda, shape):
     """At grids of 768 rows and more the eager chain itself, unchanged."""
     grid, base, s, u = _case(*shape, device=cuda)
-    before = ps.source.launches
+    before = launch_count("pma_source")
     src, jac, stages = _card_stages(base, s, u, grid)
-    assert ps.source.launches == before + 1
+    assert launch_count("pma_source") == before + 1
     want = _eager_stages(base, s, u, grid)
     assert torch.equal(jac, want["jac"])
     for got, w in zip(stages, want["metric"]):
@@ -429,12 +432,12 @@ def test_source_kernel_is_the_chained_edge_rows_chain_bit_for_bit(cuda, monkeypa
 def test_smoothing_passes_floor_and_pointwise_kernels(cuda, shape):
     grid, base, s, u = _case(*shape, device=cuda)
     want = _eager_stages(base, s, u, grid)
-    before = ps.smooth.launches
+    before = launch_count("pma_smooth")
     mon = want["src"]
     for k in range(4):
         mon = ps.smooth(mon) if k < 3 else ps.smooth(mon, want["jac"])[0]
         assert torch.equal(mon, want["passes"][k]), k
-    assert ps.smooth.launches == before + 4
+    assert launch_count("pma_smooth") == before + 4
     _, partials = ps.smooth(want["passes"][2], want["jac"])
     assert partials.numel() == ps.partials_count(grid)
 
@@ -466,13 +469,11 @@ def test_fused_loop_against_the_eager_loop(cuda, shape):
     grid, base, _, u = _case(ny, nx, device=cuda)
     q, uu = base.double(), u.double()
     for loops in (1, 20):
-        counts = [f.launches for f in (ps.source, ps.smooth, ps.rhs, ps.divide,
-                                       ps.accumulate)]
+        counts = [launch_count(f"pma_{k}") for k in STAGES]
         got = pma.loop_pma(q, uu, 1e-9, loops, grid, cfg.pma, dp.monitor_source,
                            cv.mesh_geometry_dev)
-        assert [f.launches for f in (ps.source, ps.smooth, ps.rhs, ps.divide,
-                                     ps.accumulate)] == [c + k * loops for c, k in
-                                                         zip(counts, (1, 4, 1, 1, 1))]
+        assert [launch_count(f"pma_{k}") for k in STAGES] == [
+            c + k * loops for c, k in zip(counts, (1, 4, 1, 1, 1))]
         want = pma.loop_pma(q, uu, 1e-9, loops, grid, cfg.pma, dp.monitor_source,
                             _eager_geometry)
         inc, inc_want = got - q, want - q

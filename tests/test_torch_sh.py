@@ -25,6 +25,7 @@ import torch
 from iterative_solvers_tpu_torch.io import convert
 from iterative_solvers_tpu_torch.models import swift_hohenberg as tsh
 from iterative_solvers_tpu_torch.ops import periodic_stencil as ps
+from iterative_solvers_tpu_torch.ops._build import launch_count
 from iterative_solvers_tpu_torch.solvers.newton import NewtonKrylov as TNK
 
 N = 24
@@ -183,11 +184,11 @@ def test_cuda_step_matches_cpu_step(fast):
     cfg, u0 = _cfg(), torch.tensor(_u0())
     solver = tsh.fast_solver(cfg) if fast else None
     u_c, res_c = tsh.make_cn_step(cfg, solver, device="cpu")(u0)
-    ps.reset_launches()
+    before = {d: launch_count("sh_operator", dtype=d) for d in ("f32", "f64")}
     u_g, res_g = tsh.make_cn_step(cfg, solver)(u0)
     torch.cuda.synchronize()
     assert res_g.converged and abs(res_g.iters - res_c.iters) <= int(fast)
-    assert ps.sh_operator_kernel.launches_by_dtype["f64"] > 0
-    assert (ps.sh_operator_kernel.launches_by_dtype["f32"] > 0) == fast
+    assert launch_count("sh_operator", dtype="f64") > before["f64"]
+    assert (launch_count("sh_operator", dtype="f32") > before["f32"]) == fast
     np.testing.assert_allclose(u_g.cpu().numpy(), u_c.numpy(), rtol=0,
                                atol=2e-6 if fast else 1e-8)

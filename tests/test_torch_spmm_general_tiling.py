@@ -17,8 +17,8 @@ in f64 (measured against the plain version: 0, the same products summed
 in the same order).
 
 ``tools/emulate_dia_spmv.py --only spmm`` runs the kernel's own CUDA source
-on host threads (the host's ``g++``) against the one-thread-a-point SpMM
-of the earlier design, bit for bit.
+on host threads (the host's ``g++``) against its own one-thread-a-point
+host loop of FMAs, bit for bit.
 """
 import pathlib
 import shutil
@@ -292,19 +292,18 @@ def test_general_path_of_the_stack_by_shape_and_alignment(dtype):
 
 
 def test_cuda_only_entry_points_refuse_cpu_tensors():
-    """The kernel of the earlier design and the general kernel, reachable
-    for timing in turns, launch on the card or raise."""
+    """The general kernel, reachable for timing in turns, launches on the
+    card or raises."""
     a = ts.GridDIA.from_scipy(_operator("sh", N, N), (N, N), device="cpu")
     x = torch.zeros((2, N, N), dtype=torch.float64)
-    for fn in (spmv._matmat_general, spmv._matmat_general_v1):
-        with pytest.raises(ValueError, match="CUDA device"):
-            fn(a, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        spmv._matmat_general(a, x)
 
 
-def test_emulated_kernel_equals_the_earlier_design():
+def test_emulated_spmm_equals_the_host_loop():
     """The tiled SpMM's CUDA source, compiled by the host's g++ and run on
-    host threads, equals the one-thread-a-point SpMM of the earlier design
-    bit for bit on the emulator's SpMM cases (far-shift, 999-wide f64,
+    host threads, equals the emulator's one-thread-a-point host loop of
+    FMAs in table order bit for bit on its SpMM cases (far-shift, 999-wide f64,
     130-wide f32, 1 x 1, empty, lists of several chunks, a first chunk dead
     for the top tiles ahead of whole terms that read the x window, 1e30
     out-of-grid coefficients; nrhs 1, 3, 8, 11; both layouts and both

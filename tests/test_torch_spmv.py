@@ -13,9 +13,10 @@ on the card, at every row shape of the smoke run's kernel phase (f32 to
 FMA, the plain versions do not), the tiled SpMV's two paths against each
 other (bit for bit, on far-shift, odd-width and many-term containers and
 1e30 coefficients where a source lies outside the grid), the tiled
-(general) SpMM against the one-thread-a-point SpMM of the earlier design
-(bit for bit, on both of its paths and both layouts, nrhs 1, 3, 8, 11,
-1e30 out-of-grid coefficients included), and the two SpMM kernels (the
+(general) SpMM against a host loop of correctly rounded FMAs over the same
+term table in table order (bit for bit, on both of its paths and both
+layouts, nrhs 1, 3, 8, 11, 1e30 out-of-grid coefficients included), and
+the two SpMM kernels (the
 row-slab and the general one) against each other at shapes that take each
 path:
 ``python -m pytest --noconftest -m gpu tests/test_torch_spmv.py``
@@ -32,6 +33,7 @@ import torch
 from iterative_solvers_tpu_torch.io import convert
 from iterative_solvers_tpu_torch.ops import sparse as ts
 from iterative_solvers_tpu_torch.ops import spmv
+from iterative_solvers_tpu_torch.ops._build import launch_count, reset_launch_counts
 
 N = 24
 CPU = torch.device("cpu")
@@ -234,13 +236,14 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     a = ts.GridDIA.from_scipy(m, grid, cyclic=True, device="cpu")
     d = ts.DIA.from_scipy(m, device="cpu")
     x = torch.tensor(_rand(grid))
-    spmv.reset_launches()
+    reset_launch_counts()
     got = spmv.grid_dia_matvec(a, x)
     spmv.dia_flat_matvec(d, grid, x)
     spmv.grid_dia_matmat(a, x[None])
     spmv.grid_dia_matmat_interleaved(a, x[:, None, :])
-    assert all(w.launches == 0 and w.launches_by_dtype == {"f32": 0, "f64": 0}
-               for w in spmv.WRAPPERS)
+    assert all(launch_count(k, dtype=d) == 0 for d in ("f32", "f64")
+               for k in ("grid_dia_matvec", "dia_flat_matvec", "grid_dia_matmat",
+                         "grid_dia_matmat_interleaved"))
     np.testing.assert_array_equal(got.numpy(), a._apply(x).numpy())
 
 
@@ -271,12 +274,11 @@ def test_wrappers_raise_on_dtype_and_shape_mismatch(wrapper):
 def test_launch_refuses_cpu_tensor_and_autodiff():
     a = ts.GridDIA.from_scipy(_matrix("sh")[0], (N, N), device="cpu")
     x = torch.tensor(_rand((N, N)))
-    terms = spmv._grid_terms(a.shifts, a.grid, a.cyclic, CPU)
     with pytest.raises(ValueError, match="CUDA device"):
-        spmv._launch(spmv.grid_dia_matvec, "grid_dia_matvec", a.data, terms, x, N, N, 0)
+        spmv._check("grid_dia_matvec", a.data, x)
 
     def f(v):
-        spmv._check_no_autodiff(v, "grid_dia_matvec")
+        spmv._check("grid_dia_matvec", a.data, v)
         return v
 
     with pytest.raises(RuntimeError, match="no derivative rule"):
@@ -364,10 +366,10 @@ def test_cuda_grid_dia_matvec_matches_plain(case):
     a = ts.GridDIA.from_scipy(m, grid, cyclic=cyclic, device=dev)
     assert a.data.dtype == dtype
     x = torch.tensor(_rand(grid, seed=0), dtype=dtype, device=dev)
-    before = spmv.grid_dia_matvec.launches
+    before = launch_count("grid_dia_matvec")
     got, want = spmv.grid_dia_matvec(a, x), a._apply(x)
     torch.cuda.synchronize()
-    assert spmv.grid_dia_matvec.launches == before + 1
+    assert launch_count("grid_dia_matvec") == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _close(got.cpu(), want.cpu(), _gate(dtype))
     if grid[0] <= 1024:  # and with coefficients where the containers store zeros
@@ -427,10 +429,10 @@ def test_cuda_grid_dia_matvec_paths_match_plain(case):
     rand = a._replace(data=torch.tensor(_rand(tuple(a.data.shape), seed=8), dtype=dtype,
                                         device=dev))
     for b in (a, rand):
-        before = spmv.grid_dia_matvec.launches_by_path[path]
+        before = launch_count("grid_dia_matvec", path=path)
         got, want = spmv.grid_dia_matvec(b, x), b._apply(x)
         torch.cuda.synchronize()
-        assert spmv.grid_dia_matvec.launches_by_path[path] == before + 1
+        assert launch_count("grid_dia_matvec", path=path) == before + 1
         _close(got.cpu(), want.cpu(), _gate(dtype))
         if path == "vector":
             xs = _unaligned_copy(x)
@@ -472,10 +474,10 @@ def test_cuda_dia_flat_matvec_matches_plain(case):
     m = _gpu_matrix(kind, grid).astype(_np_dtype(dtype))
     a = ts.DIA.from_scipy(m, device=dev)
     x = torch.tensor(_rand(grid[0] * grid[1], seed=2), dtype=dtype, device=dev)
-    before = spmv.dia_flat_matvec.launches
+    before = launch_count("dia_flat_matvec")
     got, want = spmv.dia_flat_matvec(a, grid, x), a.matvec(x)
     torch.cuda.synchronize()
-    assert spmv.dia_flat_matvec.launches == before + 1
+    assert launch_count("dia_flat_matvec") == before + 1
     _close(got.cpu(), want.cpu(), _gate(dtype))
     b = a._replace(data=torch.randn_like(a.data))
     _close(spmv.dia_flat_matvec(b, grid, x).cpu(), b.matvec(x).cpu(), _gate(dtype))
@@ -494,12 +496,12 @@ def test_cuda_grid_dia_matmat_matches_plain(case, cyclic):
     x3 = torch.tensor(_rand((nrhs,) + grid, seed=4), dtype=dtype, device=dev)
     xi = x3.movedim(0, 1).contiguous()
     want = spmv._matmat_plain(a, x3)
-    b3, bi = spmv.grid_dia_matmat.launches, spmv.grid_dia_matmat_interleaved.launches
+    b3, bi = launch_count("grid_dia_matmat"), launch_count("grid_dia_matmat_interleaved")
     got3 = spmv.grid_dia_matmat(a, x3)
     goti = spmv.grid_dia_matmat_interleaved(a, xi)
     torch.cuda.synchronize()
-    assert spmv.grid_dia_matmat.launches == b3 + 1
-    assert spmv.grid_dia_matmat_interleaved.launches == bi + 1
+    assert launch_count("grid_dia_matmat") == b3 + 1
+    assert launch_count("grid_dia_matmat_interleaved") == bi + 1
     assert goti.shape == xi.shape
     _close(got3.cpu(), want.cpu(), _gate(dtype))
     _close(goti.movedim(1, 0).cpu(), want.cpu(), _gate(dtype))
@@ -557,16 +559,16 @@ def test_cuda_spmm_paths_match_plain_and_each_other(case, nrhs):
     xi = x3.movedim(0, 1).contiguous()
     assert spmv.spmm_path(a, x3) == path and spmv.spmm_path(a, xi) == path
     want = spmv._matmat_plain(a, x3)
-    before = (spmv.grid_dia_matmat.launches_by_path[path],
-              spmv.grid_dia_matmat_interleaved.launches_by_path[path])
+    before = (launch_count("grid_dia_matmat", path=path),
+              launch_count("grid_dia_matmat_interleaved", path=path))
     got3 = spmv.grid_dia_matmat(a, x3)
     goti = spmv.grid_dia_matmat_interleaved(a, xi).movedim(1, 0)
+    torch.cuda.synchronize()
+    assert (launch_count("grid_dia_matmat", path=path),
+            launch_count("grid_dia_matmat_interleaved", path=path)) == (before[0] + 1,
+                                                                        before[1] + 1)
     general3 = spmv._matmat_general(a, x3)
     generali = spmv._matmat_general(a, xi, interleaved=True).movedim(1, 0)
-    torch.cuda.synchronize()
-    assert (spmv.grid_dia_matmat.launches_by_path[path],
-            spmv.grid_dia_matmat_interleaved.launches_by_path[path]) == (before[0] + 1,
-                                                                          before[1] + 1)
     for got in (got3, goti):
         _close(got.cpu(), want.cpu(), _gate(dtype))
         _close(got.cpu(), general3.cpu(), _gate(dtype))
@@ -608,17 +610,89 @@ def _spmm_case_matrix(kind, grid):
     return _grid_operator(kind, *grid)
 
 
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """``a b`` as an unevaluated sum of two floats (Veltkamp's split)."""
+    split = a.dtype.type(2.0 ** (27 if a.dtype == np.float64 else 12) + 1.0)
+
+    def halves(v):
+        c = split * v
+        hi = c - (c - v)
+        return hi, v - hi
+
+    p = a * b
+    (ah, al), (bh, bl) = halves(a), halves(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma(a, b, c):
+    """``a b + c`` rounded once, elementwise, in the arrays' own precision:
+    Boldo and Melquiond's emulation, whose one inexact sum before the last
+    is rounded to odd (exact without underflow or overflow)."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    bits = v.view(np.int64 if v.dtype == np.float64 else np.int32)
+    even = (e != 0) & (bits & 1 == 0)
+    v = np.where(even, np.nextafter(v, np.where(e > 0, np.inf, -np.inf).astype(v.dtype)), v)
+    return th + v
+
+
+def _host_fma_matmat(a, x3):
+    """``Y = A X`` for the ``(nrhs, ny, nx)`` stack on the host, each
+    point's terms of the general kernel's table summed in table order, one
+    correctly rounded FMA a term a right-hand side, terms whose source lies
+    outside the grid skipped: the general kernel's sum."""
+    ny, nx = a.grid
+    data, x = a.data.cpu().numpy(), x3.cpu().numpy()
+    acc = np.zeros_like(x)
+    r, c = np.arange(ny)[:, None], np.arange(nx)[None, :]
+    for k, dy, dx in spmv._term_rows(a.shifts, a.grid, a.cyclic, False):
+        rr, cc = (r + dy) % ny if a.cyclic else r + dy, (c + dx) % nx if a.cyclic else c + dx
+        ok = (rr >= 0) & (rr < ny) & (cc >= 0) & (cc < nx)
+        src = x[:, np.clip(rr, 0, ny - 1), np.clip(cc, 0, nx - 1)]
+        acc = np.where(ok, _fma(data[k], src, acc), acc)
+    return torch.from_numpy(acc)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_host_fma_is_rounded_once(dtype):
+    """The host loop's FMA against the exact ``a b + c`` rounded to the
+    nearest float (ties to even), on values whose product and sum lose bits
+    and on sums that cancel."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(3)
+    a, b = rng.standard_normal(2000).astype(dtype), rng.standard_normal(2000).astype(dtype)
+    c = np.concatenate([rng.standard_normal(1000), -(a[1000:].astype(np.float64)
+                                                       * b[1000:])]).astype(dtype)
+    got = _fma(a, b, c)
+    for ai, bi, ci, g in zip(a, b, c, got):
+        exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
+        near = dtype(float(exact))
+        cands = [near, np.nextafter(near, dtype(np.inf)), np.nextafter(near, dtype(-np.inf))]
+        best = min(abs(Fraction(float(v)) - exact) for v in cands)
+        ties = [v for v in cands if abs(Fraction(float(v)) - exact) == best]
+        want = min(ties, key=lambda v: int(np.array(v).view(
+            np.int64 if dtype == np.float64 else np.int32)) & 1)
+        assert g == want, (ai, bi, ci, g, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("nrhs", [1, 3, 8, 11])
 @pytest.mark.parametrize("case", list(SPMM_GENERAL_GPU_CASES))
-def test_cuda_general_spmm_equals_v1(case, nrhs):
+def test_cuda_general_spmm_equals_the_host_fma_loop(case, nrhs):
     """The tiled (general) SpMM sums each point's live terms in table order
-    with one FMA a term a right-hand side, as the one-thread-a-point SpMM
-    of the earlier design does: in both layouts, on the path
+    with one FMA a term a right-hand side: in both layouts, on the path
     ``matvec_path`` names (and, where that is the vector path, on an
-    unaligned copy of the stack: the scalar path), it equals that kernel
-    bit for bit, on random coefficients everywhere, and lies within the
-    gate of the plain version."""
+    unaligned copy of the stack: the scalar path), it equals the host loop
+    of correctly rounded FMAs bit for bit, on random coefficients
+    everywhere, and lies within the gate of the plain version."""
     dev = _cuda()
     kind, grid, cyclic, dtype, path = SPMM_GENERAL_GPU_CASES[case]
     m = _spmm_case_matrix(kind, grid).astype(_np_dtype(dtype))
@@ -628,19 +702,22 @@ def test_cuda_general_spmm_equals_v1(case, nrhs):
     x3 = torch.tensor(_rand((nrhs,) + grid, seed=4), dtype=dtype, device=dev)
     xi = x3.movedim(0, 1).contiguous()
     want = spmv._matmat_plain(a, x3)
-    for x, wrapper, inter in ((x3, spmv.grid_dia_matmat, False),
-                              (xi, spmv.grid_dia_matmat_interleaved, True)):
+    host = _host_fma_matmat(a, x3)
+    for x, kernel, inter in ((x3, "grid_dia_matmat", False),
+                             (xi, "grid_dia_matmat_interleaved", True)):
         assert spmv.spmm_path(a, x) == "general" and spmv.matvec_path(a, x) == path
-        before = wrapper.launches_by_path["general"]
-        got, old = wrapper(a, x), spmv._matmat_general_v1(a, x, interleaved=inter)
+        before = launch_count(kernel, path="general")
+        got = getattr(spmv, kernel)(a, x)
         torch.cuda.synchronize()
-        assert wrapper.launches_by_path["general"] == before + 1
-        assert torch.equal(got, old), float((got - old).abs().max())
-        _close((got.movedim(1, 0) if inter else got).cpu(), want.cpu(), _gate(dtype))
+        assert launch_count(kernel, path="general") == before + 1
+        got = (got.movedim(1, 0) if inter else got).cpu()
+        assert torch.equal(got, host), float((got - host).abs().max())
+        _close(got, want.cpu(), _gate(dtype))
         if path == "vector":
             xs = _unaligned_copy(x)
             assert spmv.matvec_path(a, xs) == "scalar"
-            assert torch.equal(spmv._matmat_general(a, xs, interleaved=inter), old)
+            other = spmv._matmat_general(a, xs, interleaved=inter)
+            assert torch.equal((other.movedim(1, 0) if inter else other).cpu(), host)
 
 
 @pytest.mark.gpu
@@ -652,7 +729,7 @@ def test_cuda_general_spmm_out_of_grid_coefficients_add_nothing(kind, grid, dtyp
     coefficient for the general SpMM, in both layouts, on both paths and on
     the far-shift container (the non-cyclic SH operator, |dy| up to 63):
     1e30 wherever a source lies outside the grid gives the untouched
-    container's product bit for bit, and the earlier design's."""
+    container's product bit for bit, and the host loop of FMAs."""
     dev = _cuda()
     a = ts.GridDIA.from_scipy(_grid_operator(kind, *grid).astype(_np_dtype(dtype)), grid,
                               device=dev)
@@ -667,7 +744,8 @@ def test_cuda_general_spmm_out_of_grid_coefficients_add_nothing(kind, grid, dtyp
     for x, inter in ((x3, False), (x3.movedim(0, 1).contiguous(), True)):
         got = spmv._matmat_general(b, x, interleaved=inter)
         assert torch.equal(got, spmv._matmat_general(a, x, interleaved=inter))
-        assert torch.equal(got, spmv._matmat_general_v1(b, x, interleaved=inter))
+        host = _host_fma_matmat(b, x3)
+        assert torch.equal((got.movedim(1, 0) if inter else got).cpu(), host)
 
 
 @pytest.mark.gpu

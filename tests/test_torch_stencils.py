@@ -12,6 +12,7 @@ import torch
 
 from iterative_solvers_tpu.ops import stencils as jst
 from iterative_solvers_tpu_torch.ops import stencils as tst
+from iterative_solvers_tpu_torch.ops._build import LAUNCHES
 from iterative_solvers_tpu_torch.utils import trace
 
 H = (0.1, 0.07)
@@ -47,7 +48,7 @@ def test_a_call_counts_the_kernel_only_where_it_launched(monkeypatch, launches):
     launch count rose in it (a meta tensor stands for the card's, and the
     plain body for the launch)."""
     def launch(u, order, axis, h):
-        tst.fd_stencil_kernel.launches += launches
+        LAUNCHES["fd_stencil", "f32", None] += launches
         return torch.empty_like(u)
 
     monkeypatch.setattr(tst, "_launch", launch)

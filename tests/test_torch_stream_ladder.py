@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from iterative_solvers_tpu_torch.ops import stream_ladder as sl
+from iterative_solvers_tpu_torch.ops._build import launch_count
 from iterative_solvers_tpu_torch.tools import grid_experiment as tge
 from iterative_solvers_tpu_torch.tools import pipeline_experiment as tpe
 from iterative_solvers_tpu_torch.tools import stream_ladder as tsl
@@ -241,11 +242,11 @@ def _card_inputs(shape, dtype, dev, seed=0):
 @pytest.mark.parametrize("bm,slots", [(8, 1), (16, 2), (32, 4), (64, 8)])
 def test_cuda_stream_read_matches_plain(cuda, shape, dtype, bm, slots):
     u, tok = _card_inputs(shape, dtype, cuda)
-    before = sl.stream_read.launches
+    before = launch_count("stream_read")
     got = sl.stream_read(u, tok, bm, slots)
     want = sl.read_plain(u, tok, bm)
     torch.cuda.synchronize()
-    assert sl.stream_read.launches == before + 1
+    assert launch_count("stream_read") == before + 1
     nchunks = shape[0] // bm
     scale = float((tok.abs() + u.abs().view(nchunks, bm, -1)[:, :8].sum(0)).max())
     gate = nchunks * torch.finfo(dtype).eps * scale
@@ -258,10 +259,10 @@ def test_cuda_stream_read_matches_plain(cuda, shape, dtype, bm, slots):
 @pytest.mark.parametrize("bm,slots", [(8, 1), (16, 2), (32, 4), (64, 8)])
 def test_cuda_stream_write_equals_plain(cuda, shape, dtype, bm, slots):
     _, tok = _card_inputs(shape, dtype, cuda)
-    before = sl.stream_write.launches
+    before = launch_count("stream_write")
     got = sl.stream_write(tok, shape[0], bm, slots)
     torch.cuda.synchronize()
-    assert sl.stream_write.launches == before + 1
+    assert launch_count("stream_write") == before + 1
     assert torch.equal(got, sl.write_plain(tok, shape[0], bm))
 
 
@@ -273,25 +274,25 @@ def test_cuda_stream_write_equals_plain(cuda, shape, dtype, bm, slots):
                                                   (6, 4, 16, True), (8, 7, 64, False)])
 def test_cuda_staged_copy_equals_input(cuda, shape, dtype, slots, depth, bm, halos):
     u, _ = _card_inputs(shape, dtype, cuda)
-    before = sl.staged_copy.launches
+    before = launch_count("staged_copy")
     got = sl.staged_copy(u, bm, slots, depth, halos)
     torch.cuda.synchronize()
-    assert sl.staged_copy.launches == before + 1
+    assert launch_count("staged_copy") == before + 1
     assert torch.equal(got, u)
 
 
 @pytest.mark.gpu
 def test_cuda_factories_launch_their_kernels(cuda):
     u, tok = _card_inputs((512, 512), torch.float32, cuda)
-    sl.reset_launches()
+    kernels = ("stream_read", "stream_write", "staged_copy")
+    before = [launch_count(k) for k in kernels]
     acc = tsl.read_kernel(512, 512, 128, 4)(u, tok)
     rows = tsl.write_kernel(512, 512, 128, 4)(tok)
     out = tsl.copy_kernel(512, 512, 128, 2)(u, tok)
     pipe = tpe.make_pipeline(512, 512, 128, torch.float32, 6, 4, True)(u)
     grid = tge.grid_copy(512, 256)(u)
     torch.cuda.synchronize()
-    assert (sl.stream_read.launches, sl.stream_write.launches,
-            sl.staged_copy.launches) == (1, 1, 3)
+    assert [launch_count(k) - b for k, b in zip(kernels, before)] == [1, 1, 3]
     assert torch.equal(out, u) and torch.equal(pipe, u) and torch.equal(grid, u)
     assert torch.equal(rows, sl.write_plain(tok, 512, 128))
     assert float((acc - sl.read_plain(u, tok, 128)).abs().max()) <= 1e-5

@@ -16,12 +16,10 @@ barrier before any passes it; ``__ballot_sync`` is a shared array between
 two barriers; ``__shared__`` arrays are function statics, shared by the
 block's threads.
 
-The tiled SpMV is held bit for bit against this tool's own
-one-thread-a-point host loop (every term of the table tested at every
-point, each product fused into the sum with ``std::fma``); the tiled SpMM
-against the one-thread-a-point SpMM of the earlier design
-(``grid_dia_matmat_v1``), compiled and run the same way, its multiply-add
-written as the FMA that ``nvcc`` contracts it to.  Every case checks that
+The tiled SpMV and the tiled SpMM are held bit for bit against this
+tool's own one-thread-a-point host loop (every term of the table tested at
+every point for every right-hand side, each product fused into the sum
+with ``std::fma``, in table order).  Every case checks that
 the kernel writes every point, equals its reference bit for bit and lies
 within 1e-5 (f32) / 1e-12 (f64) of max|plain| of ``GridDIA._apply`` (the
 SpMM: ``_matmat_plain``): the tests' operators, the far-shift clamped SH
@@ -208,30 +206,32 @@ void run_blocks(int ny, int nx, int h, int w, F kernel) {
       }
     }
 }
-// the SpMV one point at a time, every term of the table tested at every
-// point, each product fused into the sum: the reference the tiled SpMV
-// must equal bit for bit
+// the SpMV / SpMM one point at a time, every term of the table tested at
+// every point for every right-hand side, each product fused into the sum:
+// the reference the tiled kernels must equal bit for bit.  Element
+// (j, r, c) of x and y lies at j * rs + r * ws + c.
 template <class T>
-void host_matvec(int cyclic, const T* data, const int* terms, int nterms, const T* x, T* y,
-                 int ny, int nx) {
+void host_matmat(int cyclic, const T* data, const int* terms, int nterms, const T* x, T* y,
+                 int nrhs, int ny, int nx, long long rs, long long ws) {
   const long long field = static_cast<long long>(ny) * nx;
-  for (int r = 0; r < ny; ++r)
-    for (int c = 0; c < nx; ++c) {
-      T acc = T(0);
-      for (int t = 0; t < nterms; ++t) {
-        const int k = terms[3 * t], dy = terms[3 * t + 1], dx = terms[3 * t + 2];
-        int rr = r + dy, cc = c + dx;
-        if (cyclic) {
-          if (rr >= ny) rr -= ny;
-          if (cc >= nx) cc -= nx;
-        } else if (rr < 0 || rr >= ny || cc < 0 || cc >= nx) {
-          continue;
+  for (int j = 0; j < nrhs; ++j)
+    for (int r = 0; r < ny; ++r)
+      for (int c = 0; c < nx; ++c) {
+        T acc = T(0);
+        for (int t = 0; t < nterms; ++t) {
+          const int k = terms[3 * t], dy = terms[3 * t + 1], dx = terms[3 * t + 2];
+          int rr = r + dy, cc = c + dx;
+          if (cyclic) {
+            if (rr >= ny) rr -= ny;
+            if (cc >= nx) cc -= nx;
+          } else if (rr < 0 || rr >= ny || cc < 0 || cc >= nx) {
+            continue;
+          }
+          acc = std::fma(data[k * field + static_cast<long long>(r) * nx + c],
+                         x[j * rs + rr * ws + cc], acc);
         }
-        acc = std::fma(data[k * field + static_cast<long long>(r) * nx + c],
-                       x[static_cast<long long>(rr) * nx + cc], acc);
+        y[j * rs + r * ws + c] = acc;
       }
-      y[static_cast<long long>(r) * nx + c] = acc;
-    }
 }
 template <class T>
 void run_matvec(int vec, int cyclic, const T* data, const int* terms, int nterms, const T* x,
@@ -245,7 +245,7 @@ void run_matvec(int vec, int cyclic, const T* data, const int* terms, int nterms
     });
   };
   vec ? tiled(MvOf<T, true>{}) : tiled(MvOf<T, false>{});
-  host_matvec(cyclic, data, terms, nterms, x, y1, ny, nx);
+  host_matmat(cyclic, data, terms, nterms, x, y1, 1, ny, nx, 0, nx);
 }
 template <class T>
 void run_matmat(int vec, int cyclic, int interleaved, const T* data, const int* terms,
@@ -262,24 +262,7 @@ void run_matmat(int vec, int cyclic, int interleaved, const T* data, const int* 
     });
   };
   vec ? tiled(MmOf<T, true>{}) : tiled(MmOf<T, false>{});
-  // the earlier design: blocks of kBX x kBY threads, no barrier
-  for (int by = 0; by < (ny + kBY - 1) / kBY; ++by)
-    for (int bx = 0; bx < (nx + kBX - 1) / kBX; ++bx) {
-      blockIdx = {static_cast<unsigned>(bx), static_cast<unsigned>(by), 0};
-      for (int ty = 0; ty < kBY; ++ty)
-        for (int tx = 0; tx < kBX; ++tx) {
-          threadIdx = {static_cast<unsigned>(tx), static_cast<unsigned>(ty), 0};
-          if (interleaved)
-            cyclic ? grid_dia_matmat_v1_interleaved_kernel<T, true>(data, terms, nterms, x, y1,
-                                                                   nrhs, ny, nx)
-                   : grid_dia_matmat_v1_interleaved_kernel<T, false>(data, terms, nterms, x,
-                                                                    y1, nrhs, ny, nx);
-          else
-            cyclic ? grid_dia_matmat_v1_kernel<T, true>(data, terms, nterms, x, y1, nrhs, ny, nx)
-                   : grid_dia_matmat_v1_kernel<T, false>(data, terms, nterms, x, y1, nrhs, ny,
-                                                         nx);
-        }
-    }
+  host_matmat(cyclic, data, terms, nterms, x, y1, nrhs, ny, nx, rs, ws);
 }
 extern "C" void emulate_matvec(int f64, int vec, int cyclic, const void* data, const int* terms,
                                int nterms, const void* x, void* y, void* y1, int ny, int nx) {
@@ -306,12 +289,6 @@ extern "C" void emulate_matmat(int f64, int vec, int cyclic, int interleaved, co
 }
 """
 
-V1_MULTIPLY_ADD = ("        if (j < nj) acc[j] += d * __ldg(src + static_cast<size_t>(j) "
-                   "* rhs_stride);")
-V1_FMA = ("        if (j < nj) acc[j] = fma_rn(d, __ldg(src + static_cast<size_t>(j) "
-          "* rhs_stride), acc[j]);")
-
-
 TUNING_EXPORTS = "// What the compiler and the card give the cyclic slab kernel"
 
 
@@ -319,9 +296,6 @@ def build(source: pathlib.Path, out_dir: pathlib.Path):
     """The kernel source behind the stand-ins, with the harness, as a
     shared library; returns its ``emulate_matvec`` and ``emulate_matmat``."""
     text = source.read_text()
-    if V1_MULTIPLY_ADD not in text:
-        raise SystemExit("the v1 SpMM's multiply-add is not where the emulator expects it")
-    text = text.replace(V1_MULTIPLY_ADD, V1_FMA)
     # the resource reports, at the end of the file, are not emulated
     text = text[:text.index(TUNING_EXPORTS)]
     text = re.sub(r"<<<.*?>>>", "", text, flags=re.S)
@@ -439,8 +413,8 @@ def run_case(fn, kind, grid, cyclic, dtype, path, big=False) -> bool:
 
 
 def run_mm_case(fn, kind, grid, cyclic, dtype, nrhs, layout, path, big=False) -> bool:
-    """The tiled SpMM against the general SpMM of the earlier design (bit
-    for bit) and ``_matmat_plain``, in ``layout``."""
+    """The tiled SpMM against the one-thread-a-point host loop (bit for
+    bit) and ``_matmat_plain``, in ``layout``."""
     rng = np.random.default_rng(2)
     a = _container(kind, grid, cyclic, dtype, rng, big)
     x3 = torch.tensor(rng.standard_normal((nrhs,) + grid), dtype=dtype)
@@ -458,7 +432,7 @@ def run_mm_case(fn, kind, grid, cyclic, dtype, nrhs, layout, path, big=False) ->
         want = want if layout == "stacked" else want.movedim(0, 1)
     label = (f"spmm {kind:10s} {str(grid):11s} cyclic={int(cyclic)} {str(dtype)[6:]:8s} "
              f"{path:6s} x{nrhs:<2d} {layout:11s} terms={terms.shape[0]:4d}")
-    return _report(label, y, y1, want, dtype, big, "vs_v1")
+    return _report(label, y, y1, want, dtype, big, "vs_host_loop")
 
 
 CASES = ([(kind, (24, 24), cyclic) for kind in ("sh", "lap", "biharmonic", "random")

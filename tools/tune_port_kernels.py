@@ -40,9 +40,8 @@ the device alone), the chosen design (``droplet``) or the earlier design
   ``grid_dia_matmat_general_variant_{f32,f64}`` (points a thread, terms
   whose loads are issued together, right-hand sides a register tile, the
   register cap, x as single points, the other path), the tiled SpMV's
-  four probes, and both layouts of the chosen tiling, against the
-  one-thread-a-point SpMM of the earlier design (``v1``, first and last),
-  with the bytes bound of each row.
+  four probes, and both layouts of the chosen tiling, with the bytes bound
+  of each row.
 
 The sparse kernels' variants (``spmm``, ``spmv``, ``general``) are not in
 the package's library: ``tools/dia_spmv_tuning.cu`` includes the library
@@ -151,7 +150,8 @@ def tune_droplet(dev):
     from iterative_solvers_tpu_torch.utils.timing import graph_ms
 
     ptxas_report(_build.CSRC / "droplet_jvp.cu")
-    tile_fn = _build.c_function("droplet_jvp_tile_f32", dj._ARGS + [ctypes.c_int])
+    tile_fn = _build.c_function("droplet_jvp_tile_f32",
+                                dj._ARGS["droplet_jvp"] + [ctypes.c_int])
     for n in (1024, 2048):
         grid = Grid2D(nx=n, ny=n, xl=-2.0, xr=5.0, yb=-3.5, yt=3.5)
         v, stack = cs.synthetic_jvp_inputs(n, n, dev)
@@ -455,13 +455,11 @@ def tune_general(dev, nrhs: int = 8):
                 raise RuntimeError(f"variant {k}: CUDA error {err}")
             return out
 
-        runs = [("v1", lambda: spmv._matmat_general_v1(a, x3))]
-        runs += [(label, lambda k=k: variant(k)) for k, label in MM_VARIANTS[tag].items()
+        runs = [(label, lambda k=k: variant(k)) for k, label in MM_VARIANTS[tag].items()
                  if not (label in VECTOR_ONLY[tag] and n % (16 // x3.element_size()))]
         runs += [(name, lambda k=k: variant(k)) for k, name in MV_PROBES.items()]
         runs += [("chosen", lambda: spmv._matmat_general(a, x3)),
-                 ("chosen_interleaved", lambda: spmv._matmat_general(a, xi, True)),
-                 ("v1_interleaved", lambda: spmv._matmat_general_v1(a, xi, True)), runs[0]]
+                 ("chosen_interleaved", lambda: spmv._matmat_general(a, xi, True))]
         for label, fn in runs:
             got = fn()
             torch.cuda.synchronize()
