@@ -287,6 +287,18 @@ Drives ``iterative_solvers_tpu_torch`` only (no JAX), on the card:
                   with the program's tracing on: each stencil call of a phase is one
                   launch, and each MEMS step of phase 22 makes 8 calls a
                   residual evaluation and 14 more (``stencil.calls``).
+41. flux_div    — run after phase 40: the curvilinear Laplacian's flux
+                  divergence kernel (``ops/csrc/flux_div.cu`` through
+                  ``ops/stencils``'s ``flux_div_x``, ``flux_div_y``) at
+                  phase 40's shapes, on contiguous fields and on ``.T``
+                  views of contiguous fields, one launch a call, each bit
+                  for bit with its plain body on the card; with ms, graph
+                  ms, the plain body's ms and graph ms and the bytes bound
+                  (``a`` and ``v`` read once, the result written once).
+                  Its launches are read around the same phases as phase
+                  40's: each flux call of a phase is one launch, and each
+                  MEMS step of phase 22 makes 4 calls a residual
+                  evaluation and 4 more (``flux.calls``).
 
 Each phase prints one JSON line; any failed check exits non-zero.  The
 last lines are the kernel list, the ``nvidia-smi`` name and power limit,
@@ -794,36 +806,91 @@ def fd_stencil_rows(dev) -> list:
     return rows
 
 
-FD_BY_PHASE = {}       # the stencils' kernel launches by phase
+def flux_div_rows(dev) -> list:
+    """Phase 41: ``flux_div_x`` and ``flux_div_y`` at each of ``FD_CASES``
+    on a seeded pair of fields (``a`` positive like the metric
+    coefficients, ``v`` N(0, 1)), contiguous and as ``.T`` views of
+    contiguous fields, one launch a call, bit for bit with the plain body
+    (``max_abs_err``, which must be 0).  Times: ``ms`` (CUDA events through
+    the wrapper), ``device_ms`` (graph replay), ``plain_ms`` /
+    ``plain_device_ms`` (the plain body, the same two ways) and the bytes
+    bound (``a`` and ``v`` read once, the result written once)."""
+    import torch
+    from iterative_solvers_tpu_torch.ops import stencils
+    from iterative_solvers_tpu_torch.ops._build import launch_count
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    rows = []
+    for shape, dtype in FD_CASES:
+        for layout in ("contiguous", "transposed"):
+            drawn = shape if layout == "contiguous" else shape[::-1]
+            a, v = (torch.randn(drawn, generator=gen, dtype=torch.float64) for _ in range(2))
+            a, v = ((1.5 + 0.5 * a).to(dev, getattr(torch, dtype)),
+                    v.to(dev, getattr(torch, dtype)))
+            if layout == "transposed":
+                a, v = a.T, v.T
+            nbytes = 3 * v.numel() * v.element_size()
+            for name in ("flux_div_x", "flux_div_y"):
+                ih = 123.4 if name.endswith("x") else 87.6
+                kernel = lambda: getattr(stencils, name)(a, v, ih)  # noqa: E731
+                plain = lambda: getattr(stencils, f"{name}_plain")(a, v, ih)  # noqa: E731
+                before = launch_count("flux_div")
+                got = kernel()
+                label = f"{name} {shape[0]}x{shape[1]} {dtype} {layout}"
+                check(launch_count("flux_div") == before + 1,
+                      f"flux_div {label}: not one launch a call")
+                want = plain()
+                err = float((got - want).abs().max())
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"flux_div {label}: off the plain body by {err}")
+                row = {"name": name, "shape": list(shape), "dtype": dtype, "layout": layout,
+                       "max_abs_err": err,
+                       "ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
+                       "plain_ms": cuda_ms(plain), "plain_device_ms": graph_ms(plain),
+                       "bound_ms": nbytes / hbm_bytes_per_s() * 1e3, "bound_by": "bytes",
+                       "library_ms": None}
+                check_bound(f"flux_div {label}", row["device_ms"], row["bound_ms"], nbytes)
+                emit({"phase": "flux_div", **row})
+                rows.append(row)
+    return rows
+
+
+# the kernels whose launches the main paths' phases count, each with the
+# counter prefix of its wrappers' calls (``ops/stencils``)
+COUNTED = {"fd_stencil": "stencil", "flux_div": "flux"}
+BY_PHASE = {k: {} for k in COUNTED}   # their launches by phase
 
 
 @contextlib.contextmanager
-def fd_stencil_launches(label: str, whole_step=None):
-    """Runs the block with the program's tracing on, then puts the stencils'
-    kernel launches it made in ``FD_BY_PHASE``: more
-    than none, and one for each stencil call (``stencil.calls`` and
-    ``stencil.kernel`` of every step and outside any).  ``whole_step(c)``:
-    the calls each traced step must count, from its counters ``c``."""
+def kernel_launches(label: str, whole_step=None):
+    """Runs the block with the program's tracing on, then puts the launches
+    it made of each kernel of ``COUNTED`` in ``BY_PHASE``: more than none,
+    and one for each call of the kernel's wrappers (``{prefix}.calls`` and
+    ``{prefix}.kernel`` of every step and outside any).  ``whole_step``:
+    ``{prefix: f}``, where ``f(c)`` is the calls each traced step must
+    count under ``{prefix}.calls``, from its counters ``c``."""
     from iterative_solvers_tpu_torch.ops._build import launch_count
     from iterative_solvers_tpu_torch.utils import trace
 
-    before = launch_count("fd_stencil")
+    before = {k: launch_count(k) for k in COUNTED}
     trace.take()
     with trace.tracing():
         yield
-    launches = FD_BY_PHASE[label] = launch_count("fd_stencil") - before
     counters = trace.take().counters
-    calls, kernel = (sum(c.get(k, 0) for c in counters.values())
-                     for k in ("stencil.calls", "stencil.kernel"))
-    check(0 < launches == calls == kernel,
-          f"{label}: {launches} fd_stencil launches for {calls} stencil calls, "
-          f"{kernel} of them counted as launched")
-    if whole_step is not None:
-        steps = {k: c for k, c in counters.items() if k is not None}
+    for kernel, prefix in COUNTED.items():
+        launches = BY_PHASE[kernel][label] = launch_count(kernel) - before[kernel]
+        calls, counted = (sum(c.get(f"{prefix}.{k}", 0) for c in counters.values())
+                          for k in ("calls", "kernel"))
+        check(0 < launches == calls == counted,
+              f"{label}: {launches} {kernel} launches for {calls} {prefix} calls, "
+              f"{counted} of them counted as launched")
+    steps = {k: c for k, c in counters.items() if k is not None}
+    for prefix, calls in (whole_step or {}).items():
         check(bool(steps), f"{label}: no traced step")
         for k, c in steps.items():
-            check(c.get("stencil.calls", 0) == whole_step(c),
-                  f"{label}: step {k} counts {c}, not {whole_step(c)} stencil calls")
+            check(c.get(f"{prefix}.calls", 0) == calls(c),
+                  f"{label}: step {k} counts {c}, not {calls(c)} {prefix} calls")
 
 
 # -- the Swift-Hohenberg slice ---------------------------------------------------
@@ -1923,7 +1990,7 @@ def droplet_driver_phases(dev, prepared) -> tuple:
     nsteps = 3
     launches = 0
     pma_launches("before phase 17", expect=False)
-    with fd_stencil_launches("droplet_evolve"):
+    with kernel_launches("droplet_evolve"):
 
         fix, golden = fx.load_golden_step()
         cfg_s = fx.config_for(fix)
@@ -2084,9 +2151,11 @@ def mems_phases(dev) -> list:
     step = mems.make_step(cfg, solver, device=dev)
     u, q = mems.initial_state(cfg, device=dev)
     t, recs, worst = 0.0, [], {"u_min": 0.0, "dt": 0.0}
-    # a step: 8 stencil calls a residual evaluation, 8 for cn_term, 6 for the geometry
-    per_step = lambda c: 8 * c.get("mems.residual_evals", 0) + 14  # noqa: E731
-    with fd_stencil_launches("mems_touchdown", per_step):
+    # a step: 8 stencil calls a residual evaluation, 8 for cn_term, 6 for the
+    # geometry; 4 flux calls a residual evaluation, 4 for cn_term
+    per_step = {"stencil": lambda c: 8 * c.get("mems.residual_evals", 0) + 14,
+                "flux": lambda c: 4 * c.get("mems.residual_evals", 0) + 4}
+    with kernel_launches("mems_touchdown", per_step):
         for s in range(1, TOUCHDOWN_STEPS + 1):
             out, secs = timed(lambda: step(u, q))
             u, q, t = out.u, out.q, t + out.dt
@@ -2413,7 +2482,7 @@ def large_scale_phase(dev) -> tuple:
     before = launch_count("droplet_jvp")
     pma_launches("before phase 29", expect=False)
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), fd_stencil_launches("large_scale_droplet"):
+    with contextlib.redirect_stdout(buf), kernel_launches("large_scale_droplet"):
         line, secs = timed(lambda: ls.main(["2048", "2", "kernel", str(dev)]))
     launches = launch_count("droplet_jvp") - before
     pma_l = pma_launches("large_scale_droplet")
@@ -3149,7 +3218,10 @@ def main() -> int:
     # -- 40. the stencils' kernel at the main paths' shapes ----------------------------
     fd_rows = fd_stencil_rows(dev)
 
-    with fd_stencil_launches("phases 3-6"):
+    # -- 41. the flux divergence's kernel at the same shapes ----------------------------
+    flux_rows = flux_div_rows(dev)
+
+    with kernel_launches("phases 3-6"):
         kstats, launches_main, prepared = droplet_phases(dev)
     pma_by_phase = {"prepare_step1024": pma_launches("phases 3-6")}
 
@@ -3314,12 +3386,27 @@ def main() -> int:
                    if (r["name"], r["shape"], r["dtype"]) == ("d1_x", [N, N], "float64"))
     kernels.append({"name": "fd_stencil", "route": "cuda",
                     "source": "iterative_solvers_tpu_torch/ops/csrc/fd_stencil.cu",
-                    "replaces": None, "launches": sum(FD_BY_PHASE.values()),
-                    "launches_by_phase": dict(FD_BY_PHASE),
+                    "replaces": None, "launches": sum(BY_PHASE["fd_stencil"].values()),
+                    "launches_by_phase": dict(BY_PHASE["fd_stencil"]),
                     **{k: fd_main[k] for k in fd_numbers}, "shape": fd_main["shape"],
                     "dtype": fd_main["dtype"],
                     "rows": {f"{r['name']} {r['shape'][0]}x{r['shape'][1]} {r['dtype']}":
                              {k: r[k] for k in fd_numbers} for r in fd_rows}})
+    # the flux divergence's kernel: flux_div_x at 1024^2 f64 (the droplet's
+    # residual), every row of phase 41 beside it; the main paths' launches by phase
+    flux_numbers = numbers + ("plain_device_ms",)
+    flux_main = next(r for r in flux_rows
+                     if (r["name"], r["shape"], r["dtype"], r["layout"])
+                     == ("flux_div_x", [N, N], "float64", "contiguous"))
+    kernels.append({"name": "flux_div", "route": "cuda",
+                    "source": "iterative_solvers_tpu_torch/ops/csrc/flux_div.cu",
+                    "replaces": None, "launches": sum(BY_PHASE["flux_div"].values()),
+                    "launches_by_phase": dict(BY_PHASE["flux_div"]),
+                    **{k: flux_main[k] for k in flux_numbers}, "shape": flux_main["shape"],
+                    "dtype": flux_main["dtype"],
+                    "rows": {f"{r['name']} {r['shape'][0]}x{r['shape'][1]} {r['dtype']} "
+                             f"{r['layout']}": {k: r[k] for k in flux_numbers}
+                             for r in flux_rows}})
     denom = hbm_bytes_per_s() / 1e9
     kernels = [*with_shares(kernels, denom, copy_ceiling),
                *stream_entries(ladder_rows, ladder_launches, copy_ceiling)]

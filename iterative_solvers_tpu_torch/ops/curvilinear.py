@@ -6,8 +6,8 @@
   determinant ``J``;
 - :func:`grad_xy` — physical-space gradient through the inverse metric;
 - :func:`laplace` — the conservative 4th-order curvilinear Laplacian with
-  its three rings of one-sided boundary formulas; :func:`laplacian_xy` its
-  sum with Neumann edges.
+  its three rings of one-sided boundary formulas (the flux divergences of
+  ``ops.stencils``); :func:`laplacian_xy` its sum with Neumann edges.
 
 Edge writes go into tensors the stencils freshly returned, never into an
 input.
@@ -164,70 +164,22 @@ def grad_xy(v_ksi, v_eta, geom: MeshGeometry):
     return vx, vy
 
 
-def _flux_div_x(a, v, inv_h2, edge_dtype=None):
-    """Conservative 4th-order ``(a v_ksi)_ksi`` along the last axis.
-
-    Columns 3..n-4 use the 4th-order conservative form; columns 1, 2, n-3,
-    n-2 one-sided product rules; columns 0 and n-1 are zero.
-
-    ``edge_dtype`` (e.g. ``torch.float64``) evaluates the one-sided columns
-    from 6-column edge strips in that wider dtype and casts them back: their
-    product rules cancel ``v/h^2``-sized terms, the f32 accuracy limit at
-    fine grids.
-    """
-    if edge_dtype is not None and edge_dtype != v.dtype:
-        strip = 6  # the widest one-sided formula reads 6 edge columns
-        lo = _flux_div_x(a[:, :strip].to(edge_dtype),
-                         v[:, :strip].to(edge_dtype), inv_h2)
-        hi = _flux_div_x(a[:, -strip:].to(edge_dtype),
-                         v[:, -strip:].to(edge_dtype), inv_h2)
-        out = _flux_div_x(a, v, inv_h2)
-        return torch.cat([lo[:, :3].to(v.dtype), out[:, 3:-3],
-                          hi[:, -3:].to(v.dtype)], dim=1)
-    interior = (
-        4.0 * a[:, 2:-4] * (v[:, :-6] - 8.0 * v[:, 1:-5] + 8.0 * v[:, 3:-3] - v[:, 4:-2])
-        - (-a[:, 1:-5] + 9.0 * a[:, 2:-4] + 9.0 * a[:, 3:-3] - a[:, 4:-2])
-        * (v[:, 1:-5] - 27.0 * v[:, 2:-4] + 27.0 * v[:, 3:-3] - v[:, 4:-2])
-        + (-a[:, 2:-4] + 9.0 * a[:, 3:-3] + 9.0 * a[:, 4:-2] - a[:, 5:-1])
-        * (v[:, 2:-4] - 27.0 * v[:, 3:-3] + 27.0 * v[:, 4:-2] - v[:, 5:-1])
-        - 4.0 * a[:, 4:-2] * (v[:, 2:-4] - 8.0 * v[:, 3:-3] + 8.0 * v[:, 5:-1] - v[:, 6:])
-    ) * (inv_h2 / 288.0)
-
-    # next-to-boundary columns (product rule with one-sided stencils)
-    c1 = (
-        a[:, 1]
-        * (10.0 * v[:, 0] - 15.0 * v[:, 1] - 4.0 * v[:, 2] + 14.0 * v[:, 3] - 6.0 * v[:, 4] + v[:, 5])
-        / 12.0
-        + (-3.0 * v[:, 0] - 10.0 * v[:, 1] + 18.0 * v[:, 2] - 6.0 * v[:, 3] + v[:, 4])
-        * (-3.0 * a[:, 0] - 10.0 * a[:, 1] + 18.0 * a[:, 2] - 6.0 * a[:, 3] + a[:, 4])
-        / 144.0
-    ) * inv_h2
-    cm2 = (
-        a[:, -2]
-        * (10.0 * v[:, -1] - 15.0 * v[:, -2] - 4.0 * v[:, -3] + 14.0 * v[:, -4] - 6.0 * v[:, -5] + v[:, -6])
-        / 12.0
-        + (3.0 * v[:, -1] + 10.0 * v[:, -2] - 18.0 * v[:, -3] + 6.0 * v[:, -4] - v[:, -5])
-        * (3.0 * a[:, -1] + 10.0 * a[:, -2] - 18.0 * a[:, -3] + 6.0 * a[:, -4] - a[:, -5])
-        / 144.0
-    ) * inv_h2
-
-    # next-to-next-to-boundary columns (centred 2nd derivative + product term)
-    c2 = (
-        a[:, 2] * (-v[:, 0] + 16.0 * v[:, 1] - 30.0 * v[:, 2] + 16.0 * v[:, 3] - v[:, 4]) / 12.0
-        + (v[:, 0] - 8.0 * v[:, 1] + 8.0 * v[:, 3] - v[:, 4])
-        * (a[:, 0] - 8.0 * a[:, 1] + 8.0 * a[:, 3] - a[:, 4])
-        / 144.0
-    ) * inv_h2
-    cm3 = (
-        a[:, -3] * (-v[:, -1] + 16.0 * v[:, -2] - 30.0 * v[:, -3] + 16.0 * v[:, -4] - v[:, -5]) / 12.0
-        + (v[:, -5] - 8.0 * v[:, -4] + 8.0 * v[:, -2] - v[:, -1])
-        * (a[:, -5] - 8.0 * a[:, -4] + 8.0 * a[:, -2] - a[:, -1])
-        / 144.0
-    ) * inv_h2
-
-    zero = torch.zeros_like(c1)
-    return torch.cat([zero[:, None], c1[:, None], c2[:, None], interior,
-                      cm3[:, None], cm2[:, None], zero[:, None]], dim=1)
+def _flux_div_widened(a, v, inv_h2, edge_dtype, axis: int):
+    """The plain flux divergence along ``axis`` (-1: ``flux_div_x``, -2:
+    ``flux_div_y``) with its one-sided ends evaluated from 6-point edge
+    strips in the wider ``edge_dtype`` (e.g. ``torch.float64``) and cast
+    back: their product rules cancel ``v/h^2``-sized terms, the f32
+    accuracy limit at fine grids."""
+    flux = stencils.flux_div_x_plain if axis == -1 else stencils.flux_div_y_plain
+    out = flux(a, v, inv_h2)
+    if edge_dtype == v.dtype:
+        return out
+    n, strip = v.shape[axis], 6  # the widest one-sided formula reads 6 edge points
+    lo, hi = (flux(a.narrow(axis, k, strip).to(edge_dtype),
+                   v.narrow(axis, k, strip).to(edge_dtype), inv_h2).to(v.dtype)
+              for k in (0, n - strip))
+    return torch.cat([lo.narrow(axis, 0, 3), out.narrow(axis, 3, n - 6),
+                      hi.narrow(axis, 3, 3)], dim=axis)
 
 
 def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
@@ -235,9 +187,11 @@ def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
     """Curvilinear Laplacian: returns ``(v_xx, v_yy)`` on the moving mesh.
 
     ``v_ksi``/``v_eta`` are the computational-space first derivatives of
-    ``v`` that feed the cross terms.  ``edge_dtype`` widens the one-sided
-    boundary columns (see :func:`_flux_div_x`).  ``staged`` and ``fd`` as
-    in :func:`mesh_geometry_dev` (``a11``, ``a22``, ``p`` = a12 v_eta,
+    ``v`` that feed the cross terms.  The flux divergences are ``fd``'s
+    ``flux_div_x`` and ``flux_div_y`` (on the card one kernel launch each);
+    ``edge_dtype`` widens their one-sided ends and takes the plain bodies
+    (see :func:`_flux_div_widened`).  ``staged`` and ``fd`` as in
+    :func:`mesh_geometry_dev` (``a11``, ``a22``, ``p`` = a12 v_eta,
     ``q`` = a12 v_ksi).
     """
     j = geom.jac
@@ -245,8 +199,13 @@ def laplace(v, v_ksi, v_eta, geom: MeshGeometry, grid: Grid2D,
     a22 = staged("a22", (geom.xy * geom.xy + geom.xx * geom.xx) / j)
     a12 = -(geom.xy * (geom.xx + geom.yy)) / j
 
-    v_xx = _flux_div_x(a11, v, 1.0 / (grid.dx * grid.dx), edge_dtype)
-    v_yy = _flux_div_x(a22.T, v.T, 1.0 / (grid.dy * grid.dy), edge_dtype).T
+    ihx, ihy = 1.0 / (grid.dx * grid.dx), 1.0 / (grid.dy * grid.dy)
+    if edge_dtype is None:
+        v_xx = fd.flux_div_x(a11, v, ihx)
+        v_yy = fd.flux_div_y(a22, v, ihy)
+    else:
+        v_xx = _flux_div_widened(a11, v, ihx, edge_dtype, -1)
+        v_yy = _flux_div_widened(a22, v, ihy, edge_dtype, -2)
 
     # cross terms: (A12 v_eta)_ksi with left/right edges zeroed, and
     # (A12 v_ksi)_eta with top/bottom edges zeroed

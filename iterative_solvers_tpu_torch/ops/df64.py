@@ -225,7 +225,7 @@ def d1_y_df(u, dy: float):
 
 def flux_div_x_df(a, v, inv_h2: float):
     """Conservative 4th-order ``(a v_ksi)_ksi`` along the last axis —
-    compensated mirror of ``ops.curvilinear._flux_div_x``."""
+    compensated mirror of ``ops.stencils.flux_div_x_plain``."""
     A = lambda s: _sl(a, s)  # noqa: E731
     V = lambda s: _sl(v, s)  # noqa: E731
     t1 = mul(_lc((4.0, A(np.s_[2:-4]))),

@@ -34,15 +34,15 @@ import torch
 from ..core.grid import Grid2D
 from . import stencils
 from ._build import F32, check, launch
-from .curvilinear import _flux_div_x, _zero_edges
+from .curvilinear import _zero_edges
 
 
 def _chain(v, stack, grid: Grid2D, staged=lambda name, f: f):
     """The linearised chain; ``staged(name, f)`` stands where the kernel
     keeps the intermediate ``name`` in shared memory (``v``, ``a11``,
     ``a22``, ``p``, ``q``, ``dp``, ``dA``, ``dB``).  The pointwise stack
-    fields are read where they are used.  The stencils are their plain
-    bodies (``stencils.PLAIN``) on every device."""
+    fields are read where they are used.  The stencils and the flux
+    divergences are their plain bodies (``stencils.PLAIN``) on every device."""
     inv_j, xx, yy, xy, c0, c1, c2, c3 = stack
     dx, dy = grid.dx, grid.dy
     fd = stencils.PLAIN
@@ -53,8 +53,8 @@ def _chain(v, stack, grid: Grid2D, staged=lambda name, f: f):
 
     p = staged("p", a12 * fd.d1_y(v, dy))
     q = staged("q", a12 * fd.d1_x(v, dx))
-    fx = _flux_div_x(a11, v, 1.0 / (dx * dx))
-    fy = _flux_div_x(a22.T, v.T, 1.0 / (dy * dy)).T
+    fx = fd.flux_div_x(a11, v, 1.0 / (dx * dx))
+    fy = fd.flux_div_y(a22, v, 1.0 / (dy * dy))
     tx = _zero_edges(fd.d1_x(p, dx), rows=False)
     ty = _zero_edges(fd.d1_y(q, dy), cols=False)
     v_xx = (fx + tx) * inv_j

@@ -27,6 +27,16 @@ gradient and Laplacian and ``models.droplet.monitor_source`` take the set of
 stencils they call (``fd``); the plain versions that kernels are held to
 pass :data:`PLAIN`, so they run the plain bodies on the card too.  The
 upwind and periodic operators below stay plain.
+
+:func:`flux_div_x` and :func:`flux_div_y`, the conservative 4th-order flux
+divergence ``(a v')'`` of ``ops.curvilinear.laplace``, take the same rule:
+on a CPU tensor the plain bodies (:func:`flux_div_x_plain`, ...); on a CUDA
+float32 or float64 tensor one launch of ``csrc/flux_div.cu``
+(:func:`flux_div_kernel`), bit for bit with the plain body, which reads any
+strides and returns a fresh contiguous tensor of the operands' shape.  With
+the tracing on, ``flux.calls`` counts every call of the two and
+``flux.kernel`` those during which the kernel's count rose.  :data:`PLAIN`
+holds their plain bodies too.
 """
 from __future__ import annotations
 
@@ -107,18 +117,89 @@ def d2_y_plain(u, dy: float):
     return d2_x_plain(u.transpose(-1, -2), dy).transpose(-1, -2)
 
 
-PLAIN = SimpleNamespace(d1_x=d1_x_plain, d1_y=d1_y_plain, d2_x=d2_x_plain, d2_y=d2_y_plain)
+def flux_div_x_plain(a, v, inv_h2: float):
+    """Conservative 4th-order ``(a v_ksi)_ksi`` along the last axis, the
+    plain body (``inv_h2`` = 1 / h^2): columns 3..n-4 take the 4th-order
+    conservative form, columns 1, 2, n-3, n-2 one-sided product rules,
+    columns 0 and n-1 are zero.  Needs n >= 6."""
+    interior = (
+        4.0 * a[..., 2:-4] * (v[..., :-6] - 8.0 * v[..., 1:-5] + 8.0 * v[..., 3:-3] - v[..., 4:-2])
+        - (-a[..., 1:-5] + 9.0 * a[..., 2:-4] + 9.0 * a[..., 3:-3] - a[..., 4:-2])
+        * (v[..., 1:-5] - 27.0 * v[..., 2:-4] + 27.0 * v[..., 3:-3] - v[..., 4:-2])
+        + (-a[..., 2:-4] + 9.0 * a[..., 3:-3] + 9.0 * a[..., 4:-2] - a[..., 5:-1])
+        * (v[..., 2:-4] - 27.0 * v[..., 3:-3] + 27.0 * v[..., 4:-2] - v[..., 5:-1])
+        - 4.0 * a[..., 4:-2] * (v[..., 2:-4] - 8.0 * v[..., 3:-3] + 8.0 * v[..., 5:-1] - v[..., 6:])
+    ) * (inv_h2 / 288.0)
+
+    # next-to-boundary columns (product rule with one-sided stencils)
+    c1 = (
+        a[..., 1]
+        * (10.0 * v[..., 0] - 15.0 * v[..., 1] - 4.0 * v[..., 2] + 14.0 * v[..., 3]
+           - 6.0 * v[..., 4] + v[..., 5])
+        / 12.0
+        + (-3.0 * v[..., 0] - 10.0 * v[..., 1] + 18.0 * v[..., 2] - 6.0 * v[..., 3] + v[..., 4])
+        * (-3.0 * a[..., 0] - 10.0 * a[..., 1] + 18.0 * a[..., 2] - 6.0 * a[..., 3] + a[..., 4])
+        / 144.0
+    ) * inv_h2
+    cm2 = (
+        a[..., -2]
+        * (10.0 * v[..., -1] - 15.0 * v[..., -2] - 4.0 * v[..., -3] + 14.0 * v[..., -4]
+           - 6.0 * v[..., -5] + v[..., -6])
+        / 12.0
+        + (3.0 * v[..., -1] + 10.0 * v[..., -2] - 18.0 * v[..., -3] + 6.0 * v[..., -4] - v[..., -5])
+        * (3.0 * a[..., -1] + 10.0 * a[..., -2] - 18.0 * a[..., -3] + 6.0 * a[..., -4] - a[..., -5])
+        / 144.0
+    ) * inv_h2
+
+    # next-to-next-to-boundary columns (centred 2nd derivative + product term)
+    c2 = (
+        a[..., 2] * (-v[..., 0] + 16.0 * v[..., 1] - 30.0 * v[..., 2] + 16.0 * v[..., 3]
+                     - v[..., 4])
+        / 12.0
+        + (v[..., 0] - 8.0 * v[..., 1] + 8.0 * v[..., 3] - v[..., 4])
+        * (a[..., 0] - 8.0 * a[..., 1] + 8.0 * a[..., 3] - a[..., 4])
+        / 144.0
+    ) * inv_h2
+    cm3 = (
+        a[..., -3] * (-v[..., -1] + 16.0 * v[..., -2] - 30.0 * v[..., -3] + 16.0 * v[..., -4]
+                      - v[..., -5])
+        / 12.0
+        + (v[..., -5] - 8.0 * v[..., -4] + 8.0 * v[..., -2] - v[..., -1])
+        * (a[..., -5] - 8.0 * a[..., -4] + 8.0 * a[..., -2] - a[..., -1])
+        / 144.0
+    ) * inv_h2
+
+    zero = torch.zeros_like(c1)
+    return torch.cat([zero[..., None], c1[..., None], c2[..., None], interior,
+                      cm3[..., None], cm2[..., None], zero[..., None]], dim=-1)
+
+
+def flux_div_y_plain(a, v, inv_h2: float):
+    """``(a v_eta)_eta`` along the rows, the plain body."""
+    return flux_div_x_plain(a.transpose(-1, -2), v.transpose(-1, -2), inv_h2).transpose(-1, -2)
+
+
+PLAIN = SimpleNamespace(d1_x=d1_x_plain, d1_y=d1_y_plain, d2_x=d2_x_plain, d2_y=d2_y_plain,
+                        flux_div_x=flux_div_x_plain, flux_div_y=flux_div_y_plain)
+
+
+def _dispatch(prefix: str, kernel: str, u, plain, run):
+    """A wrapper's call on ``u``, counted under ``{prefix}.calls``: on a CPU
+    tensor ``plain()``, else ``run()``, counted under ``{prefix}.kernel``
+    if ``kernel``'s launch count rose in it."""
+    count(f"{prefix}.calls")
+    if u.device.type == "cpu":
+        return plain()
+    key = (kernel, DTYPES.get(u.dtype), None)
+    before = LAUNCHES[key]
+    out = run()
+    count(f"{prefix}.kernel", int(LAUNCHES[key] > before))
+    return out
 
 
 def _stencil(u, order: int, axis: int, h: float, plain):
-    count("stencil.calls")
-    if u.device.type == "cpu":
-        return plain(u, h)
-    key = ("fd_stencil", DTYPES.get(u.dtype), None)
-    before = LAUNCHES[key]
-    out = fd_stencil_kernel(u, order, axis, h)
-    count("stencil.kernel", int(LAUNCHES[key] > before))
-    return out
+    return _dispatch("stencil", "fd_stencil", u, lambda: plain(u, h),
+                     lambda: fd_stencil_kernel(u, order, axis, h))
 
 
 def d1_x(u, dx: float):
@@ -144,7 +225,9 @@ def d2_y(u, dy: float):
 # -- the kernel --------------------------------------------------------------
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = {"fd_stencil": [_P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, ctypes.c_double, _P]}
+_D = ctypes.c_double
+_ARGS = {"fd_stencil": [_P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _D, _P],
+         "flux_div": [_P, _P, _P, _I, _I, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _D, _D, _P]}
 
 
 def _launch(u, order: int, axis: int, h: float):
@@ -206,6 +289,89 @@ def fd_stencil_kernel(u, order: int, axis: int, h: float):
     if u.requires_grad or _wrapped(u) or forward_ad._current_level >= 0:
         return _FdStencil.apply(u, order, axis, h)
     return _launch(u, order, axis, h)
+
+
+def _flux(a, v, axis: int, inv_h2: float, plain):
+    return _dispatch("flux", "flux_div", v, lambda: plain(a, v, inv_h2),
+                     lambda: flux_div_kernel(a, v, axis, inv_h2))
+
+
+def flux_div_x(a, v, inv_h2: float):
+    """Conservative 4th-order ``(a v_ksi)_ksi`` along the last axis."""
+    return _flux(a, v, -1, inv_h2, flux_div_x_plain)
+
+
+def flux_div_y(a, v, inv_h2: float):
+    """Conservative 4th-order ``(a v_eta)_eta`` along the rows."""
+    return _flux(a, v, -2, inv_h2, flux_div_y_plain)
+
+
+def _launch_flux(a, v, axis: int, inv_h2: float):
+    """One launch of the flux kernel on the CUDA fields ``a`` and ``v``;
+    raises on anything it does not take."""
+    name = f"flux_div_{'x' if axis == -1 else 'y'}"
+    if a.shape != v.shape or v.dim() < 2:
+        raise ValueError(f"the {name} kernel takes two fields of one shape, "
+                         f"got {tuple(a.shape)} and {tuple(v.shape)}")
+    other = -2 if axis == -1 else -1
+    n, m = v.shape[axis], v.shape[other]
+    if n < 6:
+        raise ValueError(f"the {name} kernel needs 6 points along its axis, got {n}")
+    if a.dtype != v.dtype:
+        raise TypeError(f"the {name} kernel takes two fields of one dtype, "
+                        f"got {a.dtype} and {v.dtype}")
+    tag = check(name, a, v, strided=True)
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if out.numel():
+        # the leading axes as one batch axis (a copy only where no stride walks them)
+        wa, wv = (t.reshape(-1, *t.shape[-2:]) for t in (a, v))
+        launch(("flux_div", tag, None), "flux_div", _ARGS, v.device, wa.data_ptr(),
+               wv.data_ptr(), out.data_ptr(), n, m, wv.shape[0], int(axis == -1),
+               wa.stride(0), wa.stride(axis), wa.stride(other),
+               wv.stride(0), wv.stride(axis), wv.stride(other), inv_h2, inv_h2 / 288.0)
+    return out
+
+
+class _FluxDiv(torch.autograd.Function):
+    """The launch with a forward-mode rule: the flux is bilinear in
+    ``(a, v)``, so the tangent's image is the launch on ``a``'s tangent and
+    ``v`` plus the launch on ``a`` and ``v``'s tangent, each only where that
+    operand carries a tangent.  It has no reverse-mode rule (autograd raises
+    if a backward pass reaches it)."""
+
+    @staticmethod
+    def forward(a, v, axis, inv_h2):
+        return _launch_flux(a.detach(), v.detach(), axis, inv_h2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, v, ctx.axis, ctx.inv_h2 = inputs
+        ctx.save_for_forward(a, v)
+        # an operand without a tangent gets None, not zeros: no launch for it
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def jvp(ctx, a_tangent, v_tangent, *_):
+        # the tangents come wrapped at the transform's level: the wrapper
+        # unwraps them on their way to the launch
+        a, v = ctx.saved_tensors
+        out = None
+        for x, y in ((a_tangent, v), (a, v_tangent)):
+            if x is not None and y is not None:
+                part = flux_div_kernel(x, y, ctx.axis, ctx.inv_h2)
+                out = part if out is None else out + part
+        return out
+
+
+def flux_div_kernel(a, v, axis: int, inv_h2: float):
+    """``flux_div_x`` (``axis`` -1) or ``flux_div_y`` (``axis`` -2) of the
+    CUDA float32 or float64 fields ``a`` and ``v`` of one shape and dtype:
+    one launch of ``csrc/flux_div.cu`` into a fresh contiguous tensor of
+    that shape.  Under autodiff the launch goes through :class:`_FluxDiv`."""
+    if (a.requires_grad or v.requires_grad or _wrapped(a) or _wrapped(v)
+            or forward_ad._current_level >= 0):
+        return _FluxDiv.apply(a, v, axis, inv_h2)
+    return _launch_flux(a, v, axis, inv_h2)
 
 
 def dxy(u, dx: float, dy: float):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Tile and segment tuning of the port's five redesigned CUDA kernels on
-one GPU, and the times of the fused PMA sub-step's kernels and of the
-stencils' kernel:
+one GPU, and the times of the fused PMA sub-step's kernels, of the
+stencils' kernel and of the flux divergence's kernel:
 ``python3 tools/tune_port_kernels.py [droplet] [sh] [spmm] [spmv]
-[general] [pma] [fd]``.
+[general] [pma] [fd] [flux]``.
 
 Drives ``iterative_solvers_tpu_torch`` only (no JAX).  For each kernel it
 prints what ``ptxas`` reports for the source (registers, spills, shared
@@ -63,6 +63,14 @@ own under ``_build/tuning``.
   the scale), with the largest gap to the plain body over its largest
   value (the edge rows' summation order, 0 where cuBLAS sums as the
   kernel does).
+- ``flux``: the flux divergence's kernel (``flux_div.cu``,
+  ``ops/stencils.flux_div_x``, ``flux_div_y``: the curvilinear Laplacian's
+  conservative ``(a v')'``) at 51^2 f64 and 1024^2 f32 and f64 on a seeded
+  pair ``(a, v)``, as ``fd``: ms over batches of calls and graph ms,
+  against its bytes bound (``a`` and ``v`` read once, the result written
+  once) and the plain body on the card (~156 eager launches a call), with
+  the largest gap to the plain body over its largest value (0: bit for
+  bit).
 
 One JSON line per measurement, with the card's name and power limit first.
 """
@@ -545,6 +553,38 @@ def tune_fd(dev):
                      "plain_graph_ms": graph_ms(plain), "rel_gap": gap})
 
 
+def tune_flux(dev):
+    import torch
+    from iterative_solvers_tpu_torch.ops import _build, stencils
+    from iterative_solvers_tpu_torch.utils.timing import graph_ms
+
+    ptxas_report(_build.CSRC / "flux_div.cu")
+    res = (ctypes.c_int * 5)()
+    fn = _build.c_function("flux_div_resources", [ctypes.c_int, ctypes.c_void_p])
+    for is_f64 in (0, 1):
+        if fn(is_f64, ctypes.cast(res, ctypes.c_void_p)):
+            raise SystemExit("flux_div_resources failed")
+        cs.emit({"phase": "tune_flux", "dtype": "f64" if is_f64 else "f32",
+                 "resources": dict(zip(("registers", "shared_bytes", "spill_bytes",
+                                        "blocks_per_sm", "threads"), list(res)))})
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    for shape, dtype in (((51, 51), torch.float64), ((1024, 1024), torch.float32),
+                         ((1024, 1024), torch.float64)):
+        a = (1.5 + 0.5 * torch.randn(shape, generator=gen, dtype=torch.float64)).to(dev, dtype)
+        v = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev, dtype)
+        bound_ms = 3 * v.numel() * v.element_size() / 3.35e12 * 1e3
+        for name in ("flux_div_x", "flux_div_y"):
+            ih = 123.4 if name.endswith("x") else 87.6
+            kernel = lambda: getattr(stencils, name)(a, v, ih)  # noqa: E731
+            plain = lambda: getattr(stencils, f"{name}_plain")(a, v, ih)  # noqa: E731
+            want = plain()
+            gap = float((kernel() - want).abs().max()) / float(want.abs().max())
+            cs.emit({"phase": "tune_flux", "shape": list(shape), "dtype": str(dtype)[6:],
+                     "kernel": name, "ms": cs.cuda_ms(kernel), "graph_ms": graph_ms(kernel),
+                     "bound_ms": bound_ms, "plain_ms": cs.cuda_ms(plain),
+                     "plain_graph_ms": graph_ms(plain), "rel_gap": gap})
+
+
 def main() -> int:
     import torch
 
@@ -554,7 +594,7 @@ def main() -> int:
     from iterative_solvers_tpu_torch.ops import _build
     from iterative_solvers_tpu_torch.utils.timing import nvidia_smi
 
-    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general", "pma", "fd"]
+    which = sys.argv[1:] or ["droplet", "sh", "spmm", "spmv", "general", "pma", "fd", "flux"]
     print(nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     _build.load_library()
@@ -572,6 +612,8 @@ def main() -> int:
         tune_pma(dev)
     if "fd" in which:
         tune_fd(dev)
+    if "flux" in which:
+        tune_flux(dev)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 
