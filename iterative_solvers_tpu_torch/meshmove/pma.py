@@ -153,18 +153,22 @@ def solve_shifted_neumann(rhs, grid: Grid2D, params: PMAParams, *,
 
 def pma_dqdt(q, u, grid: Grid2D, params: PMAParams,
              monitor_source: Callable, geometry_fn: Callable | None = None):
-    """Geometry -> monitor source -> smoothing -> spectral solve.
+    """Geometry -> monitor source -> smoothing -> spectral solve, each phase
+    in a span of its own (``pma.geometry``, ``pma.monitor``, ``pma.solve``).
     ``geometry_fn=curvilinear.mesh_geometry_dev`` reads ``q`` as the
     deviation potential."""
-    geom = (geometry_fn or curvilinear.mesh_geometry)(q, grid)
-    src = monitor_source(u, geom, grid)
-    mon = smooth_and_regularise(
-        src, geom.jac, grid.dx, grid.dy,
-        smoothing_iters=params.smoothing_iters,
-        mackenzie_c=params.mackenzie_c,
-        cap=params.monitor_cap,
-    )
-    return solve_pma(mon, geom.jac, grid, params)
+    with span("pma.geometry"):
+        geom = (geometry_fn or curvilinear.mesh_geometry)(q, grid)
+    with span("pma.monitor"):
+        src = monitor_source(u, geom, grid)
+        mon = smooth_and_regularise(
+            src, geom.jac, grid.dx, grid.dy,
+            smoothing_iters=params.smoothing_iters,
+            mackenzie_c=params.mackenzie_c,
+            cap=params.monitor_cap,
+        )
+    with span("pma.solve"):
+        return solve_pma(mon, geom.jac, grid, params)
 
 
 def _fused_form(s, u, grid: Grid2D, params: PMAParams, monitor_source: Callable,

@@ -29,7 +29,7 @@ from ..ops import curvilinear, stencils
 from ..ops.curvilinear import MeshGeometry
 from ..ops.droplet_jvp import jvp_matvec
 from ..solvers.newton import NewtonKrylov
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -414,6 +414,11 @@ def make_step(cfg: DropletConfig, dt: float, dtmesh: float, pma_loops: int,
 
     ``device`` is where the step runs (default CUDA; raises if CUDA is
     absent and ``device="cpu"`` was not passed).
+
+    With the tracing of ``utils.trace`` on, the step records a ``step`` span
+    and the counter ``droplet.residual_evals``: every evaluation of the
+    residual handed to the solver, Newton's own and each finite-difference
+    matvec (the JVP paths' matvecs evaluate none).
     """
     dev = resolve_device(device)
     if solver is None:
@@ -464,7 +469,13 @@ def make_step(cfg: DropletConfig, dt: float, dtmesh: float, pma_loops: int,
             else:
                 res_fn = partial(cn_residual, u_old=u, F=F, dt=dt_n, geom=geom,
                                  cfg=cfg)
-            res = slv.solve(res_fn, u if x0 is None else torch.as_tensor(x0, device=dev))
+
+            def residual(v):
+                # Newton's own evaluations and every finite-difference matvec
+                count("droplet.residual_evals")
+                return res_fn(v)
+
+            res = slv.solve(residual, u if x0 is None else torch.as_tensor(x0, device=dev))
             # reference ordering: the PMA monitor is driven by the *old* solution
             q_new = loop_pma(q, u, dtmesh if dtmesh_n is None else dtmesh_n,
                              pma_loops, grid, cfg.pma, monitor_source, geometry_fn)

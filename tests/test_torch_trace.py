@@ -1,6 +1,7 @@
 """The port's tracing (``utils/trace``): spans, step ids and counters, the
 switch, the profiler's view, the host-sync counter's identities on CPU
 solves, and results bit for bit equal with tracing on and off."""
+import dataclasses
 from collections import Counter
 from functools import partial
 
@@ -10,9 +11,12 @@ import torch
 
 from iterative_solvers_tpu_torch.io import convert, fixtures as tfx
 from iterative_solvers_tpu_torch.meshmove import pma as tpma
+from iterative_solvers_tpu_torch.meshmove.monitor import smooth_and_regularise
 from iterative_solvers_tpu_torch.models import droplet as tdp
 from iterative_solvers_tpu_torch.models import mems as tm
 from iterative_solvers_tpu_torch.models import swift_hohenberg as sh
+from iterative_solvers_tpu_torch.ops import curvilinear
+from iterative_solvers_tpu_torch.solvers import newton as tnewton
 from iterative_solvers_tpu_torch.solvers.cg import cg
 from iterative_solvers_tpu_torch.solvers.gmres import gmres
 from iterative_solvers_tpu_torch.solvers.lgmres import lgmres
@@ -137,9 +141,11 @@ def test_every_span_lies_in_the_profile(droplet):
     spans = Counter(s.name for s in trace.take().spans)
     annotated = Counter(e.name for e in prof.events() if e.is_user_annotation)
     assert set(spans) == {"step", "newton.solve", "newton.residual", "newton.jacobian",
-                          "krylov.cycle", "pma.loop", "pma.substep"}
+                          "krylov.cycle", "pma.loop", "pma.substep", "pma.geometry",
+                          "pma.monitor", "pma.solve"}
     assert all(annotated[name] == n for name, n in spans.items())
     assert spans["pma.substep"] == 3 and spans["step"] == 2
+    assert spans["pma.geometry"] == spans["pma.monitor"] == spans["pma.solve"] == 3
 
 
 def _sh_newton(kind):
@@ -210,8 +216,11 @@ def test_pma_loop_reads_nothing_and_the_steady_iteration_once_a_substep(droplet)
         tpma.loop_pma(q, u, 1e-7, 4, cfg.grid, cfg.pma, tdp.monitor_source)
     t = trace.take()
     assert syncs(t) == 0
-    assert [s.name for s in t.spans] == ["pma.loop"] + ["pma.substep"] * 4
-    assert all(s.parent == 0 for s in t.spans[1:])
+    phases = ["pma.geometry", "pma.monitor", "pma.solve"]
+    assert [s.name for s in t.spans] == ["pma.loop"] + (["pma.substep"] + phases) * 4
+    subs = [i for i, s in enumerate(t.spans) if s.name == "pma.substep"]
+    assert all(t.spans[i].parent == 0 for i in subs)
+    assert all(t.spans[i + k].parent == i for i in subs for k in (1, 2, 3))
     with trace.tracing():
         _, iters, _ = tpma.mesh_steady_state(q, u, 1e-7, cfg.grid, cfg.pma,
                                              tdp.monitor_source, atol=0.0, max_iters=3)
@@ -277,6 +286,95 @@ def test_mems_step_counts_its_stencil_calls():
     assert c.get("stencil.kernel", 0) == 0
 
 
+def _full_form(cfg):
+    """The headline bench's configuration of the golden state: float32
+    spectral solve and mesh sub-loop, the mesh potential Q itself."""
+    return dataclasses.replace(cfg, spectral_dtype="float32", mesh_dtype="float32")
+
+
+_STEP_KW = {"fd_f32": {"solver": tdp.fast_solver()},
+            "jvp_kernel": {"jvp_dtype": "float32", "jvp_kernel": True},
+            "df64": {"jvp_dtype": "float32", "residual_mode": "df64"}}
+
+
+@pytest.mark.parametrize("kind", sorted(_STEP_KW))
+def test_droplet_step_counts_newton_evaluations_and_fd_matvecs(kind, droplet, monkeypatch):
+    """``droplet.residual_evals`` is Newton's own evaluations (its
+    ``newton.residual`` spans) plus one a finite-difference matvec; the JVP
+    paths' matvecs evaluate no residual, under either residual mode."""
+    cycle, matvecs = tnewton._lgmres_cycle, []
+
+    def counted(mv, *args):
+        def mv_counted(v):
+            matvecs.append(trace._state.step)
+            return mv(v)
+        return cycle(mv_counted, *args)
+
+    monkeypatch.setattr(tnewton, "_lgmres_cycle", counted)
+    cfg, u, q, dt = droplet
+    step = tdp.make_step(_full_form(cfg), dt=dt, dtmesh=3e-9, pma_loops=1, device="cpu",
+                         **_STEP_KW[kind])
+    with trace.tracing():
+        out = step(u, q, dt)
+    t = trace.take()
+    (sid, c), = t.counters.items()
+    own = sum(1 for s in t.spans if s.name == "newton.residual")
+    assert out.converged and out.newton_iters >= 1 and matvecs.count(sid) == len(matvecs) > 0
+    want = own + (len(matvecs) if kind == "fd_f32" else 0)
+    assert c["droplet.residual_evals"] == want
+
+
+def test_pma_phase_spans_enter_once_an_eager_substep_and_never_the_fused_loop(droplet,
+                                                                            monkeypatch):
+    cfg, u, q, dt = droplet
+    step = tdp.make_step(_full_form(cfg), dt=dt, dtmesh=3e-9, pma_loops=3,
+                         solver=tdp.fast_solver(), device="cpu")
+    with trace.tracing():
+        step(u, q, dt)
+    spans = trace.take().spans
+    names = Counter(s.name for s in spans)
+    assert names["pma.substep"] == names["pma.geometry"] == names["pma.monitor"] == 3
+    assert names["pma.solve"] == 3 and names["pma.loop"] == 1
+    phases = [s for s in spans if s.name in ("pma.geometry", "pma.monitor", "pma.solve")]
+    assert all(spans[s.parent].name == "pma.substep" for s in phases)
+    # the fused loop: no eager sub-step, so none of the three
+    monkeypatch.setattr(tpma, "_fused", lambda *a: True)
+    monkeypatch.setattr(tpma.pma_substep, "film_gradient", lambda u, grid: (u, u))
+    monkeypatch.setattr(tpma.pma_substep, "substep", lambda base, s, *a, **k: s + 1e-9)
+    monkeypatch.setattr(tpma, "pma_dqdt", _raise)
+    with trace.tracing():
+        tpma.loop_pma(q, u, 1e-9, 3, cfg.grid, _full_form(cfg).pma, tdp.monitor_source)
+    assert [s.name for s in trace.take().spans] == ["pma.loop"] + ["pma.substep",
+                                                                   "pma.fused"] * 3
+
+
+def test_full_form_step_untraced_is_the_written_out_chain(droplet):
+    """With tracing off the published step's numbers are those of its
+    operations written out in their order: the geometry of Q, the CN/JFNK
+    solve, then the float32 sub-loop of geometry, monitor, smoothing and
+    spectral solve, bit for bit."""
+    cfg0, u, q, dt = droplet
+    cfg = _full_form(cfg0)
+    grid, params = cfg.grid, cfg.pma
+    out = tdp.make_step(cfg, dt=dt, dtmesh=3e-9, pma_loops=3, solver=tdp.fast_solver(),
+                        device="cpu")(u, q, dt)
+    geom = curvilinear.mesh_geometry(q, grid)
+    F = tdp.pde_rhs(u, geom, cfg)
+    res = tdp.fast_solver().solve(partial(tdp.cn_residual, u_old=u, F=F, dt=dt, geom=geom,
+                                          cfg=cfg), u)
+    q0, um = q.float(), u.float()
+    acc = torch.zeros_like(q0)
+    for _ in range(3):
+        g = curvilinear.mesh_geometry(q0 + acc, grid)
+        mon = smooth_and_regularise(tdp.monitor_source(um, g, grid), g.jac, grid.dx, grid.dy,
+                                    smoothing_iters=params.smoothing_iters,
+                                    mackenzie_c=params.mackenzie_c, cap=params.monitor_cap)
+        acc = acc + 3e-9 * tpma.solve_pma(mon, g.jac, grid, params)
+    assert torch.equal(out.u, res.x) and out.f_norm == res.f_norm
+    assert out.newton_iters == res.iters == 3 and out.converged
+    assert torch.equal(out.q, q + acc.to(q.dtype))
+
+
 def _run(case, droplet):
     if case == "mems":
         out = _mems_steps(1)[0]
@@ -286,12 +384,16 @@ def _run(case, droplet):
     if case == "sh_semi":
         return sh.semi_implicit_step(sh_field(), sh_field(4), SH, device="cpu")
     cfg, u, q, dt = droplet
+    if case == "droplet_full":
+        out = tdp.make_step(_full_form(cfg), dt=dt, dtmesh=3e-9, pma_loops=5,
+                            solver=tdp.fast_solver(), device="cpu")(u, q, dt)
+        return (out.u, out.q), out
     out = tdp.make_step(cfg, dt=dt, dtmesh=3e-9, pma_loops=5, jvp_dtype="float32",
                         jvp_kernel=True, device="cpu")(u, q, dt)
     return (out.u, out.q), out
 
 
-@pytest.mark.parametrize("case", ["sh_cn", "sh_semi", "droplet", "mems"])
+@pytest.mark.parametrize("case", ["sh_cn", "sh_semi", "droplet", "mems", "droplet_full"])
 def test_results_bit_for_bit_with_tracing_on_and_off(case, droplet):
     off = _run(case, droplet)
     with trace.tracing():
